@@ -1,25 +1,25 @@
-"""allset_tpu: a TPU-native hypergraph neural network framework.
+"""allset_tpu: a JAX hypergraph neural network framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
-AllSet reference codebase (jianhao2016/AllSet — "You are AllSet: A Multiset
+A from-scratch JAX/XLA re-design of the capability surface of the AllSet
+reference codebase (jianhao2016/AllSet — "You are AllSet: A Multiset
 Function Framework for Hypergraph Neural Networks", ICLR 2022).
 
-Everything is built around one load-bearing idea, TPU-first:
+Everything is built around one load-bearing idea:
 
 * A hypergraph is a **static-shape sparse incidence** (COO over
-  (node, hyperedge) pairs, padded to a lane-friendly bucket).
+  (node, hyperedge) pairs, padded to a static bucket).
 * Every model in the AllSet family reduces to four primitive ops over that
   incidence: row gather, segment-reduce (SpMM), segment-softmax (for
-  attention pooling), and dense GEMMs — all of which XLA/Pallas map well
-  onto the MXU/VPU.
-* Multi-chip scaling is incidence **edge partitioning** over a
+  attention pooling), and dense GEMMs — all of which XLA compiles for the
+  GPU as they stand.
+* Multi-device scaling is incidence **edge partitioning** over a
   ``jax.sharding.Mesh`` (`allset_tpu.parallel`), not a port of any
   torch.distributed machinery (the reference has none).
 
 Layout:
-  ops/       segment kernels (XLA-native + Pallas), the compute core
+  ops/       sorted segment ops over the incidence, the compute core
   graph/     Incidence pytree + host-side hypergraph transforms
-  nn/        neural modules (MLP, PMA, HalfNLHconv, convs)
+  nn/        module layer (core.py) + neural modules (MLP, PMA, HalfNLHconv)
   models/    SetGNN (AllSetTransformer / AllDeepSets) + baseline families
   data/      dataset loaders, synthetic generators, caching, splits
   train/     jitted full-batch trainer, logger, evaluation

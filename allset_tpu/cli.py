@@ -68,14 +68,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_vmap_runs", action="store_true",
                    help="run statistical replicas sequentially (low-memory)")
     p.add_argument("--vmap_chunk", type=int, default=None,
-                   help="vmapped runs per device pass (default all; halves "
-                        "automatically on HBM exhaustion)")
+                   help="vmapped runs per device pass (default sized from "
+                        "the device's memory; halves automatically when "
+                        "the device runs out of memory)")
     p.add_argument("--epoch_chunk", type=int, default=None,
-                   help="epochs per device call (default auto: bounded "
-                        "executions for large graphs)")
+                   help="epochs per device call (default: the whole run "
+                        "in one call)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize forward activations in the backward "
-                        "(jax.checkpoint): bigger graphs per chip")
+                        "(jax.checkpoint): bigger graphs per device")
     p.add_argument("--preset", action="store_true",
                    help="apply the tuned per-dataset AllSetTransformer preset")
     p.add_argument("--dtype", default="float32",
@@ -85,18 +86,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save train/valid/test accuracy curves (the "
                         "reference Logger.plot_result, src/train.py:152-167)")
     p.add_argument("--save_params", default=None, metavar="PATH",
-                   help="save final-epoch parameters (flax msgpack; "
+                   help="save final-epoch parameters (np.savez archive; "
                         "vmapped runs carry a leading runs axis, "
                         "--no_vmap_runs saves the LAST run only)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a jax.profiler trace of the run "
-                        "(TensorBoard/Perfetto; see benchmarks/trace_step.py "
-                        "for an in-process xplane reader)")
+                        "(TensorBoard/Perfetto; benchmarks/trace_step.py "
+                        "reads one in-process)")
     return p
 
 
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Parse ``argv``, train, write the result CSVs; returns the
+    trainer's ``Results`` (per-run, per-epoch metrics)."""
     args = build_parser().parse_args(argv)
+
+    from allset_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from allset_tpu.data.registry import SYNTHETIC_FEATURE_DATASETS, load_dataset
     from allset_tpu.train import TrainConfig, Trainer
@@ -209,7 +221,7 @@ def main(argv=None) -> int:
     with open(all_args_file, "a+") as f:
         f.write(str(vars(args)) + "\n")
     print(f"Saved results to {filename}")
-    return 0
+    return res
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 
 from allset_tpu.graph.transforms import HyperData, coalesce
+from allset_tpu.utils import require
 
 
 def load_LE_dataset(path: str, dataset: str = "ModelNet40") -> HyperData:
@@ -94,8 +95,10 @@ def load_yelp_dataset(
     """Yelp restaurants (reference ``src/load_other_datasets.py:198-291``):
     features = [latlong | state 1-hot | city 1-hot | name bag-of-words],
     labels = star bins, incidence from yelp_restaurant_incidence_H.csv."""
-    import pandas as pd
-    from sklearn.feature_extraction.text import CountVectorizer
+    pd = require("pandas", "loading the yelp dataset")
+    CountVectorizer = require(
+        "sklearn.feature_extraction.text", "loading the yelp dataset"
+    ).CountVectorizer
 
     latlong = pd.read_csv(osp.join(path, "yelp_restaurant_latlong.csv")).values
     loc = pd.read_csv(osp.join(path, "yelp_restaurant_locations.csv"))
@@ -141,7 +144,7 @@ def load_cornell_dataset(
     synthetic features = one-hot(label) + N(0, feature_noise), optionally
     zero-padded to feature_dim (the '-100' variants); hyperedges
     one-per-line comma-separated; node ids shifted to start at 0."""
-    import pandas as pd
+    pd = require("pandas", f"loading the {dataset} dataset")
 
     df_labels = pd.read_csv(
         osp.join(path, dataset, f"node-labels-{dataset}.txt"), names=["node_label"]

@@ -117,7 +117,7 @@ def load_dataset(
                 distractor_scale=2.0, feature_noise=noise, seed=seed,
             )
         if name == "synthetic-mid":
-            # band-recording size (VERDICT r3 weak #5): the 500-node
+            # band-recording size: the 500-node
             # synthetic's 125-node test split makes cross-run std 3-8
             # accuracy points — too loose for a regression net. 2000
             # nodes quarters the per-node quantum and stabilizes the

@@ -41,7 +41,7 @@ class Batch:
     @classmethod
     def from_hyperdata(
         cls, data: HyperData, bucket: int = 256, with_incidence: bool = True,
-        bucket_rows: int = 131072,
+        bucket_rows: int = 0,
     ) -> "Batch":
         extras = {k: jnp.asarray(v) for k, v in data.extras.items()}
         return cls(

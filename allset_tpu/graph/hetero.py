@@ -7,12 +7,12 @@ metapath with ``dgl.metapath_reachable_graph`` (cached on the graph
 object); each layer then runs one GAT per metapath and fuses them with
 semantic attention.
 
-TPU-native split: graph derivation is inherently host-side, dynamic-shape
+Host/device split: graph derivation is inherently host-side, dynamic-shape
 preprocessing — it runs ONCE per graph in numpy/scipy (SpGEMM composition
 of the edge-type adjacencies, binarized reachability) and is cached with
 the reference's own semantics (keyed on the graph object identity,
 ``model_hetero.py:76-84``). The derived static-shape incidences then feed
-a jit-compiled flax module (GAT-per-metapath + semantic attention, shared
+a jit-compiled module (GAT-per-metapath + semantic attention, shared
 with models/han.py).
 """
 
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.incidence import Incidence
 
@@ -97,7 +97,7 @@ class HeteroHANConfig:
     dropout: float = 0.6
 
 
-class MetapathHAN(nn.Module):
+class MetapathHAN(core.Module):
     """HAN over P precomputed metapath graphs: one DGLGATConv per metapath
     per layer, semantic attention across metapaths, linear predict head
     (reference ``model_hetero.py:40-117``; generalizes models/han.py's
@@ -106,7 +106,7 @@ class MetapathHAN(nn.Module):
     cfg: HeteroHANConfig
     num_paths: int
 
-    @nn.compact
+    @core.compact
     def __call__(
         self, graphs: List[Incidence], x: Array, train: bool = False
     ) -> Array:

@@ -1,4 +1,4 @@
-"""The Incidence pytree: static-shape sparse hypergraph for TPU.
+"""The Incidence pytree: static-shape sparse hypergraph for XLA.
 
 The reference stores a hypergraph as a dynamic-length ``2 x nnz`` torch
 LongTensor (star-expansion bipartite edge list, documented at reference
@@ -11,8 +11,7 @@ XLA's static-shape compilation model:
     in-place every forward at ``src/models.py:453-454``; we do it once,
     on the host, at construction).
   * the nnz axis is **padded to a bucket** (multiple of 256 by default) so
-    that adding self-loops / re-normalizing never triggers re-compilation
-    and tiles map cleanly onto the 8x128 VPU lanes.
+    that adding self-loops / re-normalizing never triggers re-compilation.
   * padded entries carry ``node == num_nodes`` and ``edge == num_edges``
     (out-of-range, dropped by XLA scatter) and ``norm == 0``.
   * entries are canonically **sorted by hyperedge id** (the V2E segment
@@ -64,13 +63,6 @@ class Incidence:
     num_nodes: int = dataclasses.field(metadata=dict(static=True))
     num_edges: int = dataclasses.field(metadata=dict(static=True))
     nnz: int = dataclasses.field(metadata=dict(static=True))
-    # CSR aux for the Pallas sorted-segment-sum kernel (ops/pallas_segment):
-    # entry offsets of each s_blk-segment output block, over edge-sorted
-    # entries; None when the incidence wasn't built with kernel support.
-    edge_block_indptr: Optional[Array] = None
-    num_edges_padded: int = dataclasses.field(default=0, metadata=dict(static=True))
-    kernel_s_blk: int = dataclasses.field(default=0, metadata=dict(static=True))
-    kernel_chunk: int = dataclasses.field(default=0, metadata=dict(static=True))
     # Node-sorted aux: a second entry ordering, sorted by node id, so the
     # E->V reduce (and the backward of every V-side gather) also runs as a
     # *sorted* segment-sum. node_perm maps canonical (edge-sorted) order ->
@@ -80,8 +72,6 @@ class Incidence:
     inv_node_perm: Optional[Array] = None  # i32[nnz_pad]: node-order -> canonical
     node_sorted: Optional[Array] = None  # i32[nnz_pad] = node[node_perm]
     edge_by_node: Optional[Array] = None  # i32[nnz_pad] = edge[node_perm]
-    node_block_indptr: Optional[Array] = None
-    num_nodes_padded: int = dataclasses.field(default=0, metadata=dict(static=True))
     # static per-destination valid-entry counts (degrees) for 'mean' reduces
     node_count: Optional[Array] = None  # f32[num_nodes]
     edge_count: Optional[Array] = None  # f32[num_edges]
@@ -105,8 +95,8 @@ class Incidence:
     sl_mask: Optional[Array] = None  # f32[num_nodes]
     sl_norm_full: Optional[Array] = None  # f32[num_nodes]
     num_sl_edges: int = dataclasses.field(default=0, metadata=dict(static=True))
-    # VMEM-cliff bucketing (ops/bucketed.py): built when a gather-table
-    # side exceeds bucket_rows (~the 110 MB VMEM window at width 384).
+    # Row-bucketed exchange (ops/bucketed.py): built only when the caller
+    # passes bucket_rows > 0 and a gather-table side exceeds it.
     # by_node: entries grouped by node-id range, reduced by edge (serves
     # the V2E forward AND the E2V backward); by_edge: the transpose.
     bucket_by_node: Optional[tuple] = None  # tuple[BucketSide, ...]
@@ -126,17 +116,14 @@ class Incidence:
         num_edges: Optional[int] = None,
         bucket: int = 256,
         sort_by_edge: bool = True,
-        kernel_s_blk: int = 256,
-        kernel_chunk: int = 512,
         num_sl_edges: int = 0,
-        bucket_rows: int = 131072,
+        bucket_rows: int = 0,
     ) -> "Incidence":
         """Build from host-side numpy COO (unpadded, 0-based id spaces).
 
-        When ``sort_by_edge`` and kernel params are set, CSR block offsets
-        for the Pallas sorted-segment-sum are precomputed and the nnz axis
-        gets one spare chunk of padding (aligned reads may run past the
-        last entry by up to chunk-128 rows)."""
+        With ``sort_by_edge`` the entries take the canonical edge-sorted
+        order and the node-sorted second order is precomputed, so every
+        reduce of the exchange runs sorted (ops/exchange.py)."""
         node = np.asarray(node, dtype=np.int32)
         edge = np.asarray(edge, dtype=np.int32)
         if node.shape != edge.shape or node.ndim != 1:
@@ -181,7 +168,6 @@ class Incidence:
                         node[:k], edge[:k], norm=norm[:k],
                         num_nodes=num_nodes, num_edges=boundary,
                         bucket=bucket, sort_by_edge=True,
-                        kernel_s_blk=kernel_s_blk, kernel_chunk=kernel_chunk,
                         bucket_rows=bucket_rows,
                     ),
                     sl_node=jnp.asarray(tail_n.astype(np.int32)),
@@ -190,11 +176,7 @@ class Incidence:
                     num_sl_edges=num_sl_edges,
                 )
 
-        with_kernel = sort_by_edge and kernel_s_blk > 0
-        if with_kernel:
-            npad = pad_bucket(nnz + kernel_chunk, max(bucket, kernel_chunk))
-        else:
-            npad = pad_bucket(nnz, bucket)
+        npad = pad_bucket(nnz, bucket)
         pad = npad - nnz
         if pad:
             node = np.concatenate([node, np.full(pad, num_nodes, dtype=np.int32)])
@@ -202,33 +184,15 @@ class Incidence:
             norm = np.concatenate([norm, np.zeros(pad, dtype=np.float32)])
         mask = np.arange(npad) < nnz
 
-        edge_block_indptr = None
-        num_edges_padded = 0
         node_aux = dict(
             node_perm=None,
             inv_node_perm=None,
             node_sorted=None,
             edge_by_node=None,
-            node_block_indptr=None,
-            num_nodes_padded=0,
             node_count=None,
             edge_count=None,
         )
-        if with_kernel:
-            num_edges_padded = (
-                (int(num_edges) + kernel_s_blk - 1) // kernel_s_blk * kernel_s_blk
-            )
-            boundaries = np.arange(
-                0, num_edges_padded + kernel_s_blk, kernel_s_blk
-            )
-            # search only the VALID entries: padded entries carry id ==
-            # num_edges, which sits inside the last block when num_edges <
-            # num_edges_padded — including them would extend the last
-            # block's entry range to nnz_padded and the kernel's
-            # chunk-aligned reads would overrun the buffer (OOB DMA).
-            edge_block_indptr = jnp.asarray(
-                np.searchsorted(edge[:nnz], boundaries).astype(np.int32)
-            )
+        if sort_by_edge:
             # node-sorted second ordering (padded entries sort last: their
             # node id == num_nodes exceeds every valid id; stable sort)
             from allset_tpu.graph import native
@@ -236,22 +200,11 @@ class Incidence:
             nperm = native.stable_argsort(node, int(num_nodes) + 1).astype(np.int32)
             inv = np.empty_like(nperm)
             inv[nperm] = np.arange(npad, dtype=np.int32)
-            nsorted = node[nperm]
-            num_nodes_padded = (
-                (int(num_nodes) + kernel_s_blk - 1) // kernel_s_blk * kernel_s_blk
-            )
-            nbound = np.arange(0, num_nodes_padded + kernel_s_blk, kernel_s_blk)
-            # same valid-entries-only rule as edge_block_indptr above
-            # (padded entries stable-sort to the tail in node order too)
             node_aux = dict(
                 node_perm=jnp.asarray(nperm),
                 inv_node_perm=jnp.asarray(inv),
-                node_sorted=jnp.asarray(nsorted),
+                node_sorted=jnp.asarray(node[nperm]),
                 edge_by_node=jnp.asarray(edge[nperm]),
-                node_block_indptr=jnp.asarray(
-                    np.searchsorted(nsorted[:nnz], nbound).astype(np.int32)
-                ),
-                num_nodes_padded=num_nodes_padded,
                 node_count=jnp.asarray(
                     np.bincount(node[:nnz], minlength=num_nodes).astype(np.float32)
                 ),
@@ -262,22 +215,22 @@ class Incidence:
 
         bucket_fields = dict(bucket_by_node=None, bucket_by_edge=None)
         if (
-            with_kernel
+            sort_by_edge
             and bucket_rows > 0
             and nnz
             and (num_nodes > bucket_rows or num_edges > bucket_rows)
         ):
-            # gather tables will exceed the VMEM cliff: build the bucketed
+            # a gather table exceeds bucket_rows: build the bucketed
             # exchange aux (ops/bucketed.py) over the VALID entries
             from allset_tpu.ops.bucketed import build_bucket_side
 
             bucket_fields["bucket_by_node"] = build_bucket_side(
                 node[:nnz], edge[:nnz], int(num_nodes), int(num_edges),
-                bucket_rows, kernel_s_blk, kernel_chunk,
+                bucket_rows,
             )
             bucket_fields["bucket_by_edge"] = build_bucket_side(
                 edge[:nnz], node[:nnz], int(num_edges), int(num_nodes),
-                bucket_rows, kernel_s_blk, kernel_chunk,
+                bucket_rows,
             )
 
         return cls(
@@ -288,10 +241,6 @@ class Incidence:
             num_nodes=int(num_nodes),
             num_edges=int(num_edges),
             nnz=nnz,
-            edge_block_indptr=edge_block_indptr,
-            num_edges_padded=num_edges_padded,
-            kernel_s_blk=kernel_s_blk if with_kernel else 0,
-            kernel_chunk=kernel_chunk if with_kernel else 0,
             **node_aux,
             **sl_fields,
             **bucket_fields,
@@ -322,17 +271,11 @@ class Incidence:
             norm=self.norm if norm is None else norm,
             mask=self.mask,
             dst_count=self.edge_count,
-            block_indptr=self.edge_block_indptr,
             src_sorted=self.node_sorted,
-            src_block_indptr=self.node_block_indptr,
             perm_srcsort=self.node_perm,
             dst_srcsort=self.edge_by_node,
             num_src=self.num_nodes,
             num_dst=self.num_edges,
-            num_dst_padded=self.num_edges_padded,
-            num_src_padded=self.num_nodes_padded,
-            s_blk=self.kernel_s_blk,
-            chunk=self.kernel_chunk,
         )
 
     def e2v(self, norm: Optional[Array] = None) -> "Direction":
@@ -341,24 +284,18 @@ class Incidence:
         canonical order (norm) are permuted on the fly ([nnz] gather)."""
         if self.node_perm is None:
             # no node-sorted aux: fall back to canonical order (reduce by
-            # node is then unsorted; ops detect block_indptr=None)
+            # node is then unsorted)
             return Direction(
                 src=self.edge,
                 dst=self.node,
                 norm=self.norm if norm is None else norm,
                 mask=self.mask,
                 dst_count=self.node_count,
-                block_indptr=None,
                 src_sorted=None,
-                src_block_indptr=None,
                 perm_srcsort=None,
                 dst_srcsort=None,
                 num_src=self.num_edges,
                 num_dst=self.num_nodes,
-                num_dst_padded=0,
-                num_src_padded=0,
-                s_blk=0,
-                chunk=0,
                 dst_is_sorted=False,
             )
         n = self.norm if norm is None else norm
@@ -370,17 +307,11 @@ class Incidence:
             norm=jnp.take(n, self.node_perm, axis=0),
             mask=jnp.take(self.mask, self.node_perm, axis=0),
             dst_count=self.node_count,
-            block_indptr=self.node_block_indptr,
             src_sorted=self.edge,
-            src_block_indptr=self.edge_block_indptr,
             perm_srcsort=self.inv_node_perm,
             dst_srcsort=self.node,
             num_src=self.num_edges,
             num_dst=self.num_nodes,
-            num_dst_padded=self.num_nodes_padded,
-            num_src_padded=self.num_edges_padded,
-            s_blk=self.kernel_s_blk,
-            chunk=self.kernel_chunk,
         )
 
     # --- self-loop split directed views ---
@@ -448,8 +379,8 @@ class Direction:
 
     ``src``/``norm``/``mask`` are in execution order; ``dst`` is ascending.
     The gather's *backward* is a segment-sum over ``src`` — served sorted
-    too, via ``perm_srcsort`` (execution order -> src-sorted order) and the
-    src-sorted CSR aux. Consumed by ``allset_tpu.ops.exchange``.
+    too, via ``perm_srcsort`` (execution order -> src-sorted order) and
+    ``src_sorted``. Consumed by ``allset_tpu.ops.exchange``.
 
     Padding contract: padded entries carry out-of-range ids and zero
     norm/mask, and every model zeroes their message contribution, so their
@@ -461,9 +392,7 @@ class Direction:
     norm: Array  # f32[nnz_pad]
     mask: Array  # bool[nnz_pad]
     dst_count: Optional[Array]  # f32[num_dst] valid entries per segment
-    block_indptr: Optional[Array]  # reduce-side CSR block offsets
     src_sorted: Optional[Array]  # i32[nnz_pad] src ids, sorted (gather bwd)
-    src_block_indptr: Optional[Array]
     perm_srcsort: Optional[Array]  # i32[nnz_pad] exec -> src-sorted order
     # dst ids re-ordered into src-sorted entry order (= dst[perm_srcsort]);
     # lets the fused spmm backward read the output-cotangent rows directly
@@ -471,10 +400,6 @@ class Direction:
     dst_srcsort: Optional[Array]
     num_src: int = dataclasses.field(metadata=dict(static=True))
     num_dst: int = dataclasses.field(metadata=dict(static=True))
-    num_dst_padded: int = dataclasses.field(metadata=dict(static=True))
-    num_src_padded: int = dataclasses.field(metadata=dict(static=True))
-    s_blk: int = dataclasses.field(metadata=dict(static=True))
-    chunk: int = dataclasses.field(metadata=dict(static=True))
     dst_is_sorted: bool = dataclasses.field(default=True, metadata=dict(static=True))
     # Self-loop suffix handling in the N-SLOT layout (ops/exchange.dir_spmm):
     #   'none'   — this Direction covers all entries (default);
@@ -493,7 +418,7 @@ class Direction:
     num_dst_total: int = dataclasses.field(default=0, metadata=dict(static=True))
     sl_mask: Optional[Array] = None  # f32[num_nodes]
     sl_norm: Optional[Array] = None  # f32[num_nodes] (zero at holes)
-    # VMEM-cliff bucketed aux (ops/bucketed.BucketedDir): when set,
+    # row-bucketed aux (ops/bucketed.BucketedDir): when set,
     # dir_spmm's 'add' core routes through table-sliced gathers.
     # canon_perm maps THIS direction's execution order back to canonical
     # entry order (traced norms are canonicalized before bucket dispatch);
@@ -512,7 +437,7 @@ class Direction:
         num_dst: int = 0,
         dst_is_sorted: bool = False,
     ) -> "Direction":
-        """Ad-hoc direction from raw COO arrays (no CSR aux: XLA paths)."""
+        """Ad-hoc direction from raw COO arrays (no sorted aux)."""
         if norm is None:
             norm = jnp.ones(src.shape, jnp.float32)
         if mask is None:
@@ -523,16 +448,10 @@ class Direction:
             norm=norm,
             mask=mask,
             dst_count=None,
-            block_indptr=None,
             src_sorted=None,
-            src_block_indptr=None,
             perm_srcsort=None,
             dst_srcsort=None,
             num_src=num_src,
             num_dst=num_dst,
-            num_dst_padded=0,
-            num_src_padded=0,
-            s_blk=0,
-            chunk=0,
             dst_is_sorted=dst_is_sorted,
         )

@@ -36,11 +36,16 @@ def _load() -> Optional[ctypes.CDLL]:
     try:
         if not osp.exists(_SO) or osp.getmtime(_SO) < osp.getmtime(_SRC):
             os.makedirs(_BUILD_DIR, exist_ok=True)
+            # build beside the target and rename over it: concurrent
+            # processes may build at once, and rewriting a library another
+            # process has mapped in place would corrupt its code pages
+            tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", _SO, _SRC],
+                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, _SO)
         lib = ctypes.CDLL(_SO)
         lib.hypercore_clique_expand.restype = ctypes.c_int64
         lib.hypercore_clique_expand.argtypes = [

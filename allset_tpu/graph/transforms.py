@@ -69,7 +69,7 @@ class HyperData:
             extras=dict(self.extras),
         )
 
-    def to_incidence(self, bucket: int = 256, bucket_rows: int = 131072) -> Incidence:
+    def to_incidence(self, bucket: int = 256, bucket_rows: int = 0) -> Incidence:
         return Incidence.from_arrays(
             self.node,
             self.edge,

@@ -20,7 +20,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.init import glorot_uniform, xavier_uniform_torch_fans
@@ -30,17 +30,17 @@ from allset_tpu.ops import gather_rows, segment_softmax, segment_sum
 Array = jax.Array
 
 
-class GCNConv(nn.Module):
+class GCNConv(core.Module):
     """PyG GCNConv(normalize=False): out = scatter(norm * (XW)[src] -> dst) + b."""
 
     out_channels: int
     dtype: object = None  # jnp.bfloat16 for mixed precision
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch) -> Array:
         g = batch.inc  # V2V graph: node=src, edge=dst, norm=weights
         weight = self.param("weight", glorot_uniform(), (x.shape[-1], self.out_channels))
-        bias = self.param("bias", nn.initializers.zeros, (self.out_channels,))
+        bias = self.param("bias", jax.nn.initializers.zeros, (self.out_channels,))
         if self.dtype is not None:
             x = x.astype(self.dtype)
             weight = weight.astype(self.dtype)
@@ -55,7 +55,7 @@ class GCNConv(nn.Module):
         return out + bias.astype(out.dtype)
 
 
-class GATConv(nn.Module):
+class GATConv(core.Module):
     out_channels: int
     heads: int = 1
     dtype: object = None
@@ -63,7 +63,7 @@ class GATConv(nn.Module):
     negative_slope: float = 0.2
     dropout: float = 0.6
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         g = batch.inc
         H, C = self.heads, self.out_channels
@@ -74,16 +74,16 @@ class GATConv(nn.Module):
         if self.dtype is not None:
             x = x.astype(self.dtype)
             weight = weight.astype(self.dtype)
-        h = x @ weight  # flat [N, H*C] (see PMA's TPU layout note)
+        h = x @ weight  # flat [N, H*C]
         a_src = (h.reshape(-1, H, C) * att_l).sum(-1).astype(jnp.float32)  # [N, H]
         a_dst = (h.reshape(-1, H, C) * att_r).sum(-1).astype(jnp.float32)
         alpha = gather_rows(a_src, g.node) + gather_rows(a_dst, g.edge)
-        alpha = nn.leaky_relu(alpha, self.negative_slope)
+        alpha = jax.nn.leaky_relu(alpha, self.negative_slope)
         alpha = segment_softmax(
             alpha, g.edge, g.num_nodes, mask=g.mask,
             indices_are_sorted=g.node_perm is not None,
         )
-        alpha = nn.Dropout(self.dropout)(alpha, deterministic=not train)
+        alpha = core.Dropout(self.dropout)(alpha, deterministic=not train)
         if g.node_perm is not None:
             from allset_tpu.ops.exchange import dir_gather, dir_reduce
 
@@ -96,7 +96,7 @@ class GATConv(nn.Module):
         if not self.concat:
             out = out.reshape(-1, H, C).mean(axis=1)
         bias = self.param(
-            "bias", nn.initializers.zeros, (H * C if self.concat else C,)
+            "bias", jax.nn.initializers.zeros, (H * C if self.concat else C,)
         )
         return out + bias.astype(out.dtype)
 
@@ -118,12 +118,12 @@ def _dt(cfg):
     return jnp.bfloat16 if cfg.dtype == "bfloat16" else None
 
 
-class CEGCN(nn.Module):
+class CEGCN(core.Module):
     """GCN stack on the clique expansion (``src/models.py:80-128``)."""
 
     cfg: CEConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         x = batch.x
@@ -131,20 +131,20 @@ class CEGCN(nn.Module):
         for i, w in enumerate(widths):
             x = GCNConv(w, dtype=_dt(c), name=f"conv{i}")(x, batch)
             if i < len(widths) - 1:
-                x = nn.relu(x)
+                x = jax.nn.relu(x)
                 if c.normalization == "bn":
-                    x = nn.BatchNorm(use_running_average=not train, momentum=0.9,
+                    x = core.BatchNorm(use_running_average=not train, momentum=0.9,
                                      epsilon=1e-5, name=f"bn{i}")(x)
-                x = nn.Dropout(c.dropout)(x, deterministic=not train)
+                x = core.Dropout(c.dropout)(x, deterministic=not train)
         return x.astype(jnp.float32)
 
 
-class CEGAT(nn.Module):
+class CEGAT(core.Module):
     """GAT stack on the clique expansion (``src/models.py:131-183``)."""
 
     cfg: CEConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         x = batch.x
@@ -152,11 +152,11 @@ class CEGAT(nn.Module):
             x = GATConv(c.mlp_hidden, heads=c.heads, concat=True, dtype=_dt(c), name=f"conv{i}")(
                 x, batch, train
             )
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             if c.normalization == "bn":
-                x = nn.BatchNorm(use_running_average=not train, momentum=0.9,
+                x = core.BatchNorm(use_running_average=not train, momentum=0.9,
                                  epsilon=1e-5, name=f"bn{i}")(x)
-            x = nn.Dropout(c.dropout)(x, deterministic=not train)
+            x = core.Dropout(c.dropout)(x, deterministic=not train)
         x = GATConv(
             c.num_classes, heads=c.output_heads, concat=False, dtype=_dt(c),
             name=f"conv{c.all_num_layers - 1}",

@@ -19,7 +19,7 @@ from typing import Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.graph.incidence import Incidence
@@ -40,7 +40,7 @@ def xavier_normal_gain(gain: float):
     return init
 
 
-class DGLGATConv(nn.Module):
+class DGLGATConv(core.Module):
     """DGL-style GATConv over an Incidence-as-graph (src=node, dst=edge
     both in the combined id space)."""
 
@@ -51,11 +51,11 @@ class DGLGATConv(nn.Module):
     negative_slope: float = 0.2
     use_elu: bool = True
 
-    @nn.compact
+    @core.compact
     def __call__(self, g: Incidence, x: Array, train: bool = False) -> Array:
         H, C = self.heads, self.out_channels
         HC = H * C
-        x = nn.Dropout(self.feat_drop)(x, deterministic=not train)
+        x = core.Dropout(self.feat_drop)(x, deterministic=not train)
         w = self.param("fc", xavier_normal_gain(np.sqrt(2.0)), (x.shape[-1], HC))
         attn_l = self.param("attn_l", xavier_normal_gain(np.sqrt(2.0)), (1, H, C))
         attn_r = self.param("attn_r", xavier_normal_gain(np.sqrt(2.0)), (1, H, C))
@@ -67,15 +67,9 @@ class DGLGATConv(nn.Module):
             # invariance: leaky_relu is monotone, so leaky(colmax(el) +
             # colmax(er)) upper-bounds every score (the PMA 'global' mode
             # argument) — and ONE packed [h*e | e] sorted reduce replaces
-            # the narrow [nnz, H] segment max/sum chain. [nnz, 8]-minor
-            # segment ops physically occupy 128 lanes and measured 5.6 M
-            # pairs/s at bench scale; this path removes them
-            # (BENCH_HAN_r05.json). Math matches the reference path below.
-            from allset_tpu.nn.modules import _colmax
-            from allset_tpu.ops.exchange import (
-                dir_gather, dir_reduce, kernel_active,
-            )
-            from allset_tpu.ops.pallas_pma import _expand_mat
+            # the narrow [nnz, H] segment max/sum chain. Math matches the
+            # reference path below.
+            from allset_tpu.ops.exchange import dir_gather, dir_reduce
 
             d = g.v2e()
             blk = (
@@ -90,58 +84,56 @@ class DGLGATConv(nn.Module):
             el = yf[:, HC : HC + H].astype(jnp.float32)
             er = yf[:, HC + H :].astype(jnp.float32)
             gmax = jax.lax.stop_gradient(
-                nn.leaky_relu(_colmax(el) + _colmax(er), self.negative_slope)
+                jax.nn.leaky_relu(
+                    jnp.max(el, axis=0) + jnp.max(er, axis=0),
+                    self.negative_slope,
+                )
             )
             gmax = jnp.maximum(gmax, 0.0)  # empty-table guard
             packed = jnp.concatenate([h, el.astype(h.dtype)], axis=1)
             pj = dir_gather(packed, d)  # [nnz, HC+H]
             er_j = jnp.take(er, d.dst, axis=0, mode="clip")
-            s = nn.leaky_relu(
+            s = jax.nn.leaky_relu(
                 pj[:, HC:].astype(jnp.float32) + er_j, self.negative_slope
             )
             e = jnp.exp(s - gmax[None, :])
             # DGL drops the NORMALIZED alphas; mask*e/den == mask*(e/den),
             # so dropout rides the numerator while the denominator stays
             # undropped (same bernoulli shape as the reference's alpha)
-            e_num = nn.Dropout(self.attn_drop)(e, deterministic=not train)
-            P = _expand_mat(H, HC)
+            e_num = core.Dropout(self.attn_drop)(e, deterministic=not train)
             parts = [
-                pj[:, :HC] * (e_num.astype(h.dtype) @ P.astype(h.dtype)),
+                pj[:, :HC] * jnp.repeat(e_num.astype(h.dtype), C, axis=1),
                 e.astype(h.dtype),
             ]
-            if kernel_active(d, HC + H) and (HC + H) % 128 != 0:
-                parts.append(jnp.zeros(
-                    (pj.shape[0], (-(HC + H)) % 128), h.dtype
-                ))
             agg = dir_reduce(jnp.concatenate(parts, axis=1), d, "add")
             den = jnp.maximum(agg[:, HC : HC + H].astype(jnp.float32), 1e-16)
             out = (agg[:, :HC].astype(jnp.float32)
-                   / (den @ P)).astype(h.dtype)
+                   / jnp.repeat(den, C, axis=1)).astype(h.dtype)
         else:
             h = x @ w  # flat [T, H*C]
             el = (h.reshape(-1, H, C) * attn_l).sum(-1)  # [T, H]
             er = (h.reshape(-1, H, C) * attn_r).sum(-1)
             alpha = gather_rows(el, g.node) + gather_rows(er, g.edge)
-            alpha = nn.leaky_relu(alpha, self.negative_slope)
+            alpha = jax.nn.leaky_relu(alpha, self.negative_slope)
             alpha = segment_softmax(
                 alpha, g.edge, g.num_edges, mask=g.mask,
                 indices_are_sorted=False,
             )
-            alpha = nn.Dropout(self.attn_drop)(alpha, deterministic=not train)
+            alpha = core.Dropout(self.attn_drop)(alpha, deterministic=not train)
             msg = gather_rows(h, g.node) * _head_expand(alpha, C)
             out = segment_sum(msg, g.edge, g.num_edges)
         if self.use_elu:
-            out = nn.elu(out)
+            out = jax.nn.elu(out)
         return out  # [T, H*C]
 
 
-class SemanticAttention(nn.Module):
+class SemanticAttention(core.Module):
     """softmax over metapaths of a projected mean score
     (``DGL_HAN/model.py:7-22``)."""
 
     hidden_size: int = 128
 
-    @nn.compact
+    @core.compact
     def __call__(self, z: Array) -> Array:
         # z: [T, P, D]
         w = TorchDense(self.hidden_size, name="proj1")(z)
@@ -160,13 +152,13 @@ class HANConfig:
     dropout: float = 0.6
 
 
-class HAN(nn.Module):
+class HAN(core.Module):
     cfg: HANConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         """batch.extras carries the VEV/EVE metapath graphs — as full
-        Incidence pytrees (r5: ``han_extras`` keeps the sorted/kernel aux
+        Incidence pytrees (``han_extras`` keeps the sorted-order aux
         so DGLGATConv's packed path engages; the flat legacy keys are
         still accepted for old callers, at slow-path cost)."""
         c = self.cfg
@@ -204,7 +196,7 @@ class HAN(nn.Module):
         return TorchDense(c.num_classes, name="predict")(h)
 
 
-class BlockGATConv(nn.Module):
+class BlockGATConv(core.Module):
     """GAT over a sampled block: each seed attends over its fixed-size
     [K+1] neighbor set — the dense, regular-shape form of DGL's
     block-GATConv used by the sampled trainer
@@ -216,12 +208,12 @@ class BlockGATConv(nn.Module):
     attn_drop: float = 0.0
     negative_slope: float = 0.2
 
-    @nn.compact
+    @core.compact
     def __call__(self, h_src: Array, h_dst: Array, mask: Array, train: bool = False) -> Array:
         # h_src: [B, K1, F], h_dst: [B, F], mask: [B, K1]
         H, C = self.heads, self.out_channels
-        h_src = nn.Dropout(self.feat_drop)(h_src, deterministic=not train)
-        h_dst = nn.Dropout(self.feat_drop)(h_dst, deterministic=not train)
+        h_src = core.Dropout(self.feat_drop)(h_src, deterministic=not train)
+        h_dst = core.Dropout(self.feat_drop)(h_dst, deterministic=not train)
         w = self.param("fc", xavier_normal_gain(np.sqrt(2.0)), (h_src.shape[-1], H * C))
         attn_l = self.param("attn_l", xavier_normal_gain(np.sqrt(2.0)), (1, H, C))
         attn_r = self.param("attn_r", xavier_normal_gain(np.sqrt(2.0)), (1, H, C))
@@ -231,16 +223,16 @@ class BlockGATConv(nn.Module):
         B, K1 = zs.shape[0], zs.shape[1]
         el = (zs.reshape(B, K1, H, C) * attn_l[None]).sum(-1)  # [B, K1, H]
         er = (zd.reshape(B, H, C) * attn_r).sum(-1)  # [B, H]
-        scores = nn.leaky_relu(el + er[:, None, :], self.negative_slope)
+        scores = jax.nn.leaky_relu(el + er[:, None, :], self.negative_slope)
         scores = jnp.where(mask[..., None], scores, -1e30)
         alpha = jax.nn.softmax(scores, axis=1)
         alpha = jnp.where(mask[..., None], alpha, 0.0)
-        alpha = nn.Dropout(self.attn_drop)(alpha, deterministic=not train)
+        alpha = core.Dropout(self.attn_drop)(alpha, deterministic=not train)
         out = jnp.einsum("bkh,bkhc->bhc", alpha, zs.reshape(B, K1, H, C))
-        return nn.elu(out.reshape(B, H * C))
+        return jax.nn.elu(out.reshape(B, H * C))
 
 
-class SampledHAN(nn.Module):
+class SampledHAN(core.Module):
     """Mini-batch HAN over sampled blocks (``DGL_HAN/train_sampling.py``):
     per metapath a BlockGATConv, then semantic attention, then predict.
     Inputs are the per-block gathered features (device-side gather from
@@ -248,7 +240,7 @@ class SampledHAN(nn.Module):
 
     cfg: HANConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, x_full: Array, seeds: Array, blocks: dict, train: bool = False) -> Array:
         c = self.cfg
         h_dst = jnp.take(x_full, seeds, axis=0, mode="clip")
@@ -274,6 +266,6 @@ class SampledHAN(nn.Module):
 
 
 def han_extras(vev: Incidence, eve: Incidence) -> dict:
-    """Full Incidence pytrees (r5): keeps the sorted-order and kernel aux
+    """Full Incidence pytrees: keeps the sorted-order aux
     so the GAT conv's packed sorted path engages."""
     return {"vev": vev, "eve": eve}

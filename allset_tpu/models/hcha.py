@@ -21,7 +21,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.init import glorot_uniform, xavier_uniform_torch_fans
@@ -38,7 +38,7 @@ def _safe_inv(x: Array, power: float = 1.0) -> Array:
     return inv
 
 
-class HypergraphConv(nn.Module):
+class HypergraphConv(core.Module):
     out_channels: int
     symdegnorm: bool = False
     use_attention: bool = False
@@ -49,7 +49,7 @@ class HypergraphConv(nn.Module):
     use_bias: bool = True
     dtype: object = None  # jnp.bfloat16 for mixed precision
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         inc = batch.inc
         n, m = inc.num_nodes, inc.num_edges
@@ -66,8 +66,8 @@ class HypergraphConv(nn.Module):
 
         alpha = None
         if self.use_attention:
-            # flat [rows, H*F] layout (see PMA's TPU layout note); per-head
-            # scores via a reshaped view of the small [1,H,2F] att param.
+            # flat [rows, H*F] layout; per-head scores via a reshaped view
+            # of the small [1,H,2F] att param.
             att = self.param("att", xavier_uniform_torch_fans((1, H, 2 * F)), (1, H, 2 * F))
             att_i, att_e = att[..., :F], att[..., F:]
             s_i = (x.reshape(-1, H, F) * att_i).sum(-1)  # [N, H]
@@ -75,14 +75,14 @@ class HypergraphConv(nn.Module):
             alpha = gather_rows(s_i, inc.node) + gather_rows(
                 s_e, jnp.minimum(inc.edge, n - 1)  # ref indexes x by he id
             )
-            alpha = nn.leaky_relu(alpha, self.negative_slope)
+            alpha = jax.nn.leaky_relu(alpha, self.negative_slope)
             alpha = segment_softmax(alpha, inc.node, n, mask=inc.mask)
-            alpha = nn.Dropout(self.dropout)(alpha, deterministic=not train)
+            alpha = core.Dropout(self.dropout)(alpha, deterministic=not train)
 
         # D: weighted node degree (hyperedge weights are all-ones here, as
         # in the reference default), B: edge cardinality. Both are static
-        # graph quantities: prefer the incidence's precomputed counts —
-        # width-1 on-device segment sums tile terribly on TPU.
+        # graph quantities: prefer the incidence's precomputed counts over
+        # recomputing width-1 segment sums every step.
         if inc.node_count is not None:
             D, B = inc.node_count, inc.edge_count
         else:
@@ -149,7 +149,7 @@ class HypergraphConv(nn.Module):
         if self.use_attention and not self.concat:
             out = out.reshape(-1, H, F).mean(axis=1)
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros, (H * F if (self.use_attention and self.concat) else F,))
+            bias = self.param("bias", jax.nn.initializers.zeros, (H * F if (self.use_attention and self.concat) else F,))
             out = out + bias.astype(out.dtype)
         return out
 
@@ -165,12 +165,12 @@ class HCHAConfig:
     dtype: str = "float32"  # 'bfloat16' -> mixed precision
 
 
-class HCHA(nn.Module):
+class HCHA(core.Module):
     """Stack of HypergraphConv with ELU + dropout (``src/models.py:280-292``)."""
 
     cfg: HCHAConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         dt = jnp.bfloat16 if c.dtype == "bfloat16" else None
@@ -181,6 +181,6 @@ class HCHA(nn.Module):
                                   dtype=dt, name=f"conv{i}")
             x = conv(x, batch, train)
             if i < len(widths) - 1:
-                x = nn.elu(x)
-                x = nn.Dropout(c.dropout)(x, deterministic=not train)
+                x = jax.nn.elu(x)
+                x = core.Dropout(c.dropout)(x, deterministic=not train)
         return x.astype(jnp.float32)

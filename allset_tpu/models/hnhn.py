@@ -19,7 +19,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.modules import TorchDense
@@ -28,13 +28,13 @@ from allset_tpu.ops import gather_rows, segment_sum
 Array = jax.Array
 
 
-class HNHNConv(nn.Module):
+class HNHNConv(core.Module):
     hidden_channels: int
     out_channels: int
     nonlinear_inbetween: bool = True
     dtype: object = None  # jnp.bfloat16 for mixed precision
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         inc = batch.inc
         ex = batch.extras
@@ -78,7 +78,7 @@ class HNHNConv(nn.Module):
             out = segment_sum(msg, inc.edge, inc.num_edges, indices_are_sorted=True)
 
         if self.nonlinear_inbetween:
-            out = nn.relu(out)
+            out = jax.nn.relu(out)
 
         out = TorchDense(self.out_channels, dtype=self.dtype, name="weight_e2v")(out)
         out = scale_e_in[:, None].astype(out.dtype) * out
@@ -105,10 +105,10 @@ class HNHNConfig:
     dtype: str = "float32"  # 'bfloat16' -> mixed precision (f32 reduce accum)
 
 
-class HNHN(nn.Module):
+class HNHN(core.Module):
     cfg: HNHNConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         dt = jnp.bfloat16 if c.dtype == "bfloat16" else None
@@ -123,6 +123,6 @@ class HNHN(nn.Module):
             x = HNHNConv(c.mlp_hidden, w, c.nonlinear_inbetween, dtype=dt,
                          name=f"conv{i}")(x, batch, train)
             if i < len(widths) - 1:
-                x = nn.relu(x)
-                x = nn.Dropout(c.dropout)(x, deterministic=not train)
+                x = jax.nn.relu(x)
+                x = core.Dropout(c.dropout)(x, deterministic=not train)
         return x.astype(jnp.float32)

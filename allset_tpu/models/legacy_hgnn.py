@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import jax
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.modules import TorchDense
@@ -30,18 +30,18 @@ class LegacyHGNNConfig:
     dropout: float = 0.5
 
 
-class LegacyHGNN(nn.Module):
+class LegacyHGNN(core.Module):
     cfg: LegacyHGNNConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         G = batch.extras["G"]
         x = batch.x
         x = G @ TorchDense(self.cfg.mlp_hidden, name="hgc1")(x)
-        x = nn.relu(x)
+        x = jax.nn.relu(x)
         # reference calls F.dropout without training= -> always active
         # (src/models.py:202); we keep the standard train-gated behavior.
-        x = nn.Dropout(self.cfg.dropout)(x, deterministic=not train)
+        x = core.Dropout(self.cfg.dropout)(x, deterministic=not train)
         x = G @ TorchDense(self.cfg.num_classes, name="hgc2")(x)
         return x
 
@@ -57,12 +57,12 @@ class MLPConfig:
     dtype: str = "float32"  # 'bfloat16' -> mixed precision
 
 
-class MLPModel(nn.Module):
+class MLPModel(core.Module):
     """Structure-free MLP baseline (``src/models.py:487-577``)."""
 
     cfg: MLPConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         import jax.numpy as jnp
 

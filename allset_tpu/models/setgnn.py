@@ -15,9 +15,9 @@ Config rules (mirroring the reference factory ``src/train.py:30-42``):
   * BatchNorms bnV2Es/bnE2Vs exist in the reference but are commented out
     of its forward (``src/models.py:462,476``) — not re-created here.
 
-TPU notes: both directions run over the same canonically-ordered entry
-list (V2E segment-sorted); E2V reuses it with roles swapped, so LearnMask
-importance stays entry-consistent and no permutation is materialized.
+Both directions run over the same canonically-ordered entry list (V2E
+segment-sorted); E2V reuses it with roles swapped, so LearnMask importance
+stays entry-consistent.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.modules import MLP, HalfNLHconv, TorchDense
@@ -57,9 +57,6 @@ class SetGNNConfig:
     # 'float32' (default, parity) or 'bfloat16' (mixed precision: bf16
     # activations/GEMMs/sparse traffic, f32 params + softmax + layer stats)
     dtype: str = "float32"
-    # route the edge-sorted (V->E) segment reduce through the Pallas CSR
-    # kernel when the incidence carries its aux (no-op elsewhere)
-    use_pallas: bool = True
 
     @classmethod
     def all_deep_sets(cls, **kw) -> "SetGNNConfig":
@@ -68,7 +65,7 @@ class SetGNNConfig:
         return cls(**kw)
 
 
-class SetGNN(nn.Module):
+class SetGNN(core.Module):
     cfg: SetGNNConfig
 
     @property
@@ -91,20 +88,20 @@ class SetGNN(nn.Module):
             dtype=self._dtype,
             norm_grad=c.learn_mask,
             # the inter-stage relu (src/models.py:475-479) folds into the
-            # half-layer: one fused epilogue pass on the PMA path, and the
-            # DeepSets path's own final relu makes it idempotent
+            # half-layer; the DeepSets path's own final relu makes it
+            # idempotent
             fold_relu=True,
             name=name,
         )
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         x, inc = batch.x, batch.inc
         norm = inc.norm
         if c.learn_mask:
             importance = self.param(
-                "importance", nn.initializers.ones, (inc.nnz_padded,)
+                "importance", jax.nn.initializers.ones, (inc.nnz_padded,)
             )
             norm = importance * norm
 
@@ -147,7 +144,7 @@ class SetGNN(nn.Module):
             if c.learn_mask:
                 d_v2e = dataclasses.replace(d_v2e, norm_canon=norm)
                 d_e2v = dataclasses.replace(d_e2v, norm_canon=norm)
-        elif c.use_pallas and inc.node_perm is not None and jax.device_count() == 1:
+        elif inc.node_perm is not None and jax.device_count() == 1:
             if inc.real is not None and not c.learn_mask and c.normalization != "bn":
                 # self-loop suffix split: sparse core over real edges only;
                 # singleton self-loop edges become identity row slices in
@@ -178,11 +175,11 @@ class SetGNN(nn.Module):
                 h, d_e2v, aggr=c.aggregate, train=train
             )
 
-        drop = nn.Dropout(c.dropout)
+        drop = core.Dropout(c.dropout)
 
         if c.gpr:
             xs = [
-                nn.relu(
+                jax.nn.relu(
                     MLP(
                         hidden_channels=c.mlp_hidden,
                         out_channels=c.mlp_hidden,
@@ -206,7 +203,7 @@ class SetGNN(nn.Module):
             h = weights(stacked).squeeze(-1)
             return classifier(h, train).astype(jnp.float32)
 
-        h = nn.Dropout(0.2)(x, deterministic=not train)  # fixed input dropout
+        h = core.Dropout(0.2)(x, deterministic=not train)  # fixed input dropout
         for i in range(c.all_num_layers):
             h = v2e(i, h)  # relu folded into the half-layer
             h = drop(h, deterministic=not train)

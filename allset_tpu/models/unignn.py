@@ -20,7 +20,7 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.graph.batch import Batch
 from allset_tpu.nn.init import xavier_uniform_torch_fans
@@ -39,7 +39,7 @@ def normalize_l2(x: Array) -> Array:
 
 def _two_stage(x, batch, first_aggregate, second_aggregate="sum", scale_e=None, scale_v=None):
     """The UniGNN gather/scatter idiom (``src/models.py:627-632``), routed
-    through the sorted-everywhere exchange (Pallas reduces + permute-free
+    through the sorted-everywhere exchange (sorted reduces + permute-free
     backward) whenever the incidence carries the aux, and through the
     explicit shard_map edge-partitioned exchange (parallel/sharded.py)
     when ``batch.shex`` is set with an UNSPLIT build (sl_mode 'none' —
@@ -110,12 +110,12 @@ def _dt(cfg):
     return jnp.bfloat16 if cfg.dtype == "bfloat16" else None
 
 
-class UniSAGEConv(nn.Module):
+class UniSAGEConv(core.Module):
     cfg: UniGNNConfig
     out_channels: int
     heads: int = 1
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         x = TorchDense(self.heads * self.out_channels, use_bias=False, dtype=_dt(c), name="W")(x)
@@ -124,27 +124,27 @@ class UniSAGEConv(nn.Module):
         return normalize_l2(x) if c.use_norm else x
 
 
-class UniGINConv(nn.Module):
+class UniGINConv(core.Module):
     cfg: UniGNNConfig
     out_channels: int
     heads: int = 1
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
-        eps = self.param("eps", nn.initializers.zeros, (1,))
+        eps = self.param("eps", jax.nn.initializers.zeros, (1,))
         x = TorchDense(self.heads * self.out_channels, use_bias=False, dtype=_dt(c), name="W")(x)
         xv, _ = _two_stage(x, batch, c.first_aggregate, "sum")
         x = (1 + eps) * x + xv
         return normalize_l2(x) if c.use_norm else x
 
 
-class UniGCNConv(nn.Module):
+class UniGCNConv(core.Module):
     cfg: UniGNNConfig
     out_channels: int
     heads: int = 1
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         degV, degE = batch.extras["degV"], batch.extras["degE"]
@@ -154,14 +154,14 @@ class UniGCNConv(nn.Module):
         return normalize_l2(xv) if c.use_norm else xv
 
 
-class UniGCNConv2(nn.Module):
+class UniGCNConv2(core.Module):
     """v2: X -> AX -> norm -> AXW (``src/models.py:742-788``)."""
 
     cfg: UniGNNConfig
     out_channels: int
     heads: int = 1
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         degV, degE = batch.extras["degV"], batch.extras["degE"]
@@ -172,30 +172,30 @@ class UniGCNConv2(nn.Module):
         return TorchDense(self.heads * self.out_channels, use_bias=True, dtype=_dt(c), name="W")(xv)
 
 
-class UniGATConv(nn.Module):
+class UniGATConv(core.Module):
     cfg: UniGNNConfig
     out_channels: int
     heads: int = 1
     negative_slope: float = 0.2
     skip_sum: bool = False
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         inc = batch.inc
         H, C = self.heads, self.out_channels
         x0 = TorchDense(H * C, use_bias=False, dtype=_dt(c), name="W")(x)
 
-        # flat [rows, H*C] layout throughout (see PMA's TPU layout note)
+        # flat [rows, H*C] layout throughout
         xve = gather_rows(x0, inc.node)
         xe = segment_reduce(xve, inc.edge, inc.num_edges, c.first_aggregate,
                             indices_are_sorted=True)  # [E, H*C]
         att_e = self.param("att_e", xavier_uniform_torch_fans((1, H, C)), (1, H, C))
         alpha_e = (xe.reshape(-1, H, C) * att_e).sum(-1)  # [E,H]
         a_ev = gather_rows(alpha_e, inc.edge)
-        alpha = nn.leaky_relu(a_ev, self.negative_slope)
+        alpha = jax.nn.leaky_relu(a_ev, self.negative_slope)
         alpha = segment_softmax(alpha, inc.node, inc.num_nodes, mask=inc.mask)
-        alpha = nn.Dropout(c.attn_drop)(alpha, deterministic=not train)
+        alpha = core.Dropout(c.attn_drop)(alpha, deterministic=not train)
 
         xev = gather_rows(xe, inc.edge) * _head_expand(alpha.astype(xe.dtype), C)
         out = segment_sum(xev, inc.node, inc.num_nodes)
@@ -215,34 +215,34 @@ _CONVS = {
 }
 
 
-class UniGNN(nn.Module):
+class UniGNN(core.Module):
     """Generic UniGNN stack (``src/models.py:869-907``). Note the reference
     returns log_softmax from forward; our trainer applies log_softmax in
     the loss, so logits are returned here (same training math)."""
 
     cfg: UniGNNConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         Conv = _CONVS[c.model_name]
-        act = nn.relu if c.activation == "relu" else nn.PReLU()
-        x = nn.Dropout(c.input_drop)(batch.x, deterministic=not train)
+        act = jax.nn.relu if c.activation == "relu" else core.PReLU()
+        x = core.Dropout(c.input_drop)(batch.x, deterministic=not train)
         for i in range(c.all_num_layers - 1):
             x = Conv(c, c.mlp_hidden, heads=c.heads, name=f"conv{i}")(x, batch, train)
             x = act(x)
-            x = nn.Dropout(c.dropout)(x, deterministic=not train)
+            x = core.Dropout(c.dropout)(x, deterministic=not train)
         x = Conv(c, c.num_classes, heads=1, name="conv_out")(x, batch, train)
         return x.astype(jnp.float32)
 
 
-class UniGCNIIConv(nn.Module):
+class UniGCNIIConv(core.Module):
     """GCNII-style identity-mapped conv (``src/models.py:911-944``)."""
 
     cfg: "UniGCNIIConfig"
     out_features: int
 
-    @nn.compact
+    @core.compact
     def __call__(self, x, x0, alpha, beta, batch: Batch) -> Array:
         degV, degE = batch.extras["degV"], batch.extras["degE"]
         xv, _ = _two_stage(x, batch, "mean", "sum", scale_e=degE, scale_v=degV)
@@ -264,27 +264,27 @@ class UniGCNIIConfig:
     dtype: str = "float32"  # 'bfloat16' -> mixed precision
 
 
-class UniGCNII(nn.Module):
+class UniGCNII(core.Module):
     """UniGCNII (``src/models.py:948-996``): input linear, nlayer identity-
     mapping convs with beta = log(lamda/(i+1)+1), output linear; dropout
     0.2, lamda=0.5, alpha=0.1 hard-coded as in the reference."""
 
     cfg: UniGCNIIConfig
 
-    @nn.compact
+    @core.compact
     def __call__(self, batch: Batch, train: bool = False) -> Array:
         c = self.cfg
         nhid = c.mlp_hidden * c.heads
-        drop = nn.Dropout(0.2)
+        drop = core.Dropout(0.2)
         lamda, alpha = 0.5, 0.1
 
         x = drop(batch.x, deterministic=not train)
-        x = nn.relu(TorchDense(nhid, dtype=_dt(c), name="lin_in")(x))
+        x = jax.nn.relu(TorchDense(nhid, dtype=_dt(c), name="lin_in")(x))
         x0 = x
         for i in range(c.all_num_layers):
             x = drop(x, deterministic=not train)
             beta = math.log(lamda / (i + 1) + 1)
-            x = nn.relu(
+            x = jax.nn.relu(
                 UniGCNIIConv(c, nhid, name=f"conv{i}")(x, x0, alpha, beta, batch)
             )
         x = drop(x, deterministic=not train)

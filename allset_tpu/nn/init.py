@@ -9,7 +9,7 @@ The reference mixes three init schemes (parity-relevant, SURVEY.md §7.3):
     (1, heads, C) (``src/layers.py:104``): torch computes
     fan_in = H*C, fan_out = C for that shape.
 
-flax Dense kernels are (in, out) — fan bookkeeping transposed vs torch's
+Dense kernels here are (in, out) — fan bookkeeping transposed vs torch's
 (out, in), but every bound here is symmetric in (fan_in, fan_out) except
 the torch-default one, which we close over explicitly.
 """
@@ -20,11 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flax import linen as nn
-
 
 def torch_linear_kernel():
-    """U(±1/sqrt(fan_in)) on an (in, out) flax kernel."""
+    """U(±1/sqrt(fan_in)) on an (in, out) kernel."""
 
     def init(key, shape, dtype=jnp.float32):
         fan_in = shape[0]
@@ -36,7 +34,7 @@ def torch_linear_kernel():
 
 def torch_linear_bias(fan_in: int):
     """torch Linear bias: U(±1/sqrt(fan_in)) — fan_in of the layer, which
-    flax bias initializers can't see, so close over it."""
+    a bias initializer can't see, so close over it."""
 
     def init(key, shape, dtype=jnp.float32):
         bound = 1.0 / np.sqrt(fan_in) if fan_in > 0 else 0.0
@@ -48,7 +46,7 @@ def torch_linear_bias(fan_in: int):
 def glorot_uniform():
     """U(±sqrt(6/(fan_in+fan_out))): reference glorot / xavier_uniform on a
     2-D kernel."""
-    return nn.initializers.xavier_uniform()
+    return jax.nn.initializers.xavier_uniform()
 
 
 def xavier_uniform_torch_fans(shape):

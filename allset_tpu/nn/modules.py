@@ -1,7 +1,7 @@
 """Core neural modules: MLP, PMA (attention pooling), HalfNLHconv.
 
 These are the building blocks of the SetGNN family (reference
-``src/layers.py``), re-expressed as flax.linen modules over the segment
+``src/layers.py``), re-expressed as ``nn.core`` modules over the segment
 primitives of ``allset_tpu.ops``. Math and init follow the reference
 exactly (per-layer allclose parity is tested in
 ``tests/test_parity_setgnn.py``); the execution model is pure-functional
@@ -14,7 +14,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from allset_tpu.nn import core
 
 from allset_tpu.nn.init import (
     glorot_uniform,
@@ -24,43 +24,21 @@ from allset_tpu.nn.init import (
 )
 from allset_tpu.graph.incidence import Direction
 from allset_tpu.ops import segment_softmax
-from allset_tpu.ops.exchange import dir_gather, dir_reduce, dir_spmm, kernel_active
+from allset_tpu.ops.exchange import dir_gather, dir_reduce, dir_spmm
 
 Array = jax.Array
 
 LN_EPS = 1e-5  # torch LayerNorm default
-BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum (torch default 0.1)
+BN_MOMENTUM = 0.9  # running-average momentum == 1 - torch momentum (0.1)
 
 
 def _head_expand(a: Array, C: int) -> Array:
-    """Per-head column expansion ``repeat(a, C, axis=1)`` as an MXU matmul
-    against the block one-hot P[H, H*C] (P[h, j] = 1 iff j // C == h).
-
-    Exact: every output column copies exactly one input column (x1.0, one
-    nonzero term in the f32-accumulated contraction). On TPU, jnp.repeat
-    materializes [rows, H, C] 3-D layouts (~0.6 ms/step at bench shapes);
-    the tiny-contraction GEMM streams at full rate and its transpose is
-    another GEMM instead of a 3-D reduce."""
-    from allset_tpu.ops.pallas_pma import _expand_mat  # single P builder
-
-    H = a.shape[1]
-    return a @ _expand_mat(H, H * C).astype(a.dtype)
+    """Per-head column expansion [rows, H] -> [rows, H*C]: column h*C + c
+    copies column h."""
+    return jnp.repeat(a, C, axis=1)
 
 
-def _colmax(a: Array) -> Array:
-    """f32 max over axis 0 of a narrow [rows, H] array. Axis-0 reduces over
-    an H-wide minor dim tile terribly on TPU (~0.4 ms at bench shapes for
-    H=8); when the row-major layout allows, bitcast-reshape to a lane-dense
-    [rows // g, g*H] block (g*H = 128) and reduce twice."""
-    rows, H = a.shape
-    if H <= 128 and 128 % H == 0 and rows % (128 // H) == 0:
-        g = 128 // H
-        m = jnp.max(a.reshape(rows // g, g * H), axis=0)
-        return jnp.max(m.reshape(g, H), axis=0)
-    return jnp.max(a, axis=0)
-
-
-def _declare_dense_params(mod: nn.Module, fan_in: int, features: int,
+def _declare_dense_params(mod: core.Module, fan_in: int, features: int,
                           kernel_init: Optional[Callable]):
     """The single source of truth for TorchDense's param scheme (names,
     shapes, torch nn.Linear default inits) — shared with _DenseParams so
@@ -71,7 +49,7 @@ def _declare_dense_params(mod: nn.Module, fan_in: int, features: int,
     return kernel, bias
 
 
-class TorchDense(nn.Module):
+class TorchDense(core.Module):
     """Dense layer with torch ``nn.Linear`` default init:
     weight and bias ~ U(±1/sqrt(fan_in))."""
 
@@ -80,7 +58,7 @@ class TorchDense(nn.Module):
     kernel_init: Optional[Callable] = None
     dtype: Optional[jnp.dtype] = None  # compute dtype; params stay float32
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array) -> Array:
         fan_in = x.shape[-1]
         if self.use_bias:
@@ -99,7 +77,7 @@ class TorchDense(nn.Module):
         return y
 
 
-class _DenseParams(nn.Module):
+class _DenseParams(core.Module):
     """Declare TorchDense-compatible params (same scope/names/inits via
     the shared _declare_dense_params helper) WITHOUT computing the dense
     product — for layers whose output is only ever consumed through a
@@ -109,50 +87,12 @@ class _DenseParams(nn.Module):
     fan_in: int
     kernel_init: Optional[Callable] = None
 
-    @nn.compact
+    @core.compact
     def __call__(self):
         return _declare_dense_params(self, self.fan_in, self.features, self.kernel_init)
 
 
-class _LNParams(nn.Module):
-    """Parameter skeleton of nn.LayerNorm (same names 'scale'/'bias',
-    same ones/zeros inits) without computing it — for the fused PMA
-    epilogue kernel, which consumes the raw vectors."""
-
-    dim: int
-
-    @nn.compact
-    def __call__(self):
-        return (
-            self.param("scale", nn.initializers.ones, (self.dim,)),
-            self.param("bias", nn.initializers.zeros, (self.dim,)),
-        )
-
-
-class _MLPParams(nn.Module):
-    """Parameter skeleton of an equal-width MLP (same 'lin{i}' names and
-    TorchDense inits as MLP with normalization='None') returning stacked
-    [L, F, F] kernels / [L, F] biases for the fused PMA epilogue."""
-
-    hidden: int
-    out: int
-    num_layers: int
-
-    @nn.compact
-    def __call__(self):
-        ks, bs = [], []
-        fan_in = self.hidden
-        for i in range(self.num_layers - 1):
-            k, b = _DenseParams(self.hidden, fan_in, None, name=f"lin{i}")()
-            ks.append(k), bs.append(b)
-        k, b = _DenseParams(
-            self.out, fan_in, None, name=f"lin{self.num_layers - 1}"
-        )()
-        ks.append(k), bs.append(b)
-        return jnp.stack(ks), jnp.stack(bs)
-
-
-class NormLayer(nn.Module):
+class NormLayer(core.Module):
     """'bn' | 'ln' | 'None' normalization (reference MLP's per-layer
     normalizations, ``src/layers.py:506-560``). Statistics always compute
     in float32; ``dtype`` controls the output/activation dtype."""
@@ -160,23 +100,23 @@ class NormLayer(nn.Module):
     kind: str
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, train: bool) -> Array:
         if self.kind == "bn":
-            return nn.BatchNorm(
+            return core.BatchNorm(
                 use_running_average=not train,
                 momentum=BN_MOMENTUM,
                 epsilon=LN_EPS,
                 dtype=self.dtype,
             )(x)
         if self.kind == "ln":
-            return nn.LayerNorm(epsilon=LN_EPS, dtype=self.dtype)(x)
+            return core.LayerNorm(epsilon=LN_EPS, dtype=self.dtype)(x)
         if self.kind in ("None", "none", None):
             return x
         raise ValueError(f"unknown normalization {self.kind!r}")
 
 
-class MLP(nn.Module):
+class MLP(core.Module):
     """N-layer MLP with per-layer normalization, ReLU, dropout; optional
     InputNorm; 1 layer degenerates to a linear classifier.
 
@@ -193,20 +133,20 @@ class MLP(nn.Module):
     input_norm: bool = False
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
+    @core.compact
     def __call__(self, x: Array, train: bool = False) -> Array:
         if self.input_norm:
             x = NormLayer(self.normalization, dtype=self.dtype, name="input_norm")(x, train)
         for i in range(self.num_layers - 1):
             x = TorchDense(self.hidden_channels, dtype=self.dtype, name=f"lin{i}")(x)
-            x = nn.relu(x)
+            x = jax.nn.relu(x)
             x = NormLayer(self.normalization, dtype=self.dtype, name=f"norm{i}")(x, train)
-            x = nn.Dropout(self.dropout)(x, deterministic=not train)
+            x = core.Dropout(self.dropout)(x, deterministic=not train)
         x = TorchDense(self.out_channels, dtype=self.dtype, name=f"lin{self.num_layers - 1}")(x)
         return x
 
 
-class PMA(nn.Module):
+class PMA(core.Module):
     """Pooling by Multihead Attention with a learned seed vector per head.
 
     Set-Transformer-style pooling of each destination segment's multiset
@@ -234,8 +174,7 @@ class PMA(nn.Module):
     # the global max (f32 exp underflow), which trained attention logits
     # never approach. Makes exp(alpha) a PER-SOURCE quantity, so attention
     # weighting happens on the [rows, F] source table before the gather —
-    # no [nnz, *] elementwise pass and no [nnz, H]-minor segment op (the
-    # pathological XLA-TPU shape; see tpu layout note below).
+    # no [nnz, *] elementwise pass and no narrow [nnz, H] segment op.
     # 'segment': the reference's per-segment max (PyG softmax) — exact
     # parity mode.
     softmax_mode: str = "global"
@@ -245,12 +184,11 @@ class PMA(nn.Module):
     # destination segment (covers the entries of ``d``; with a self-loop
     # split Direction that's the real edges — self-loop weights are 1).
     return_attention: bool = False
-    # fold the caller's post-PMA activation (SetGNN's inter-stage relu,
-    # ``src/models.py:475-479``) into this module: rides the fused
-    # epilogue kernel's single pass when active, plain relu otherwise
+    # apply the caller's post-PMA activation (SetGNN's inter-stage relu,
+    # ``src/models.py:475-479``) at the end of this module
     fold_relu: bool = False
 
-    @nn.compact
+    @core.compact
     def __call__(
         self,
         x: Array,
@@ -266,21 +204,17 @@ class PMA(nn.Module):
         # projection (alpha = (x_K * att_r).sum over C), which is linear:
         # fold it into the kernel — alpha = x @ (W_K . P) + b_K . P with
         # P the [HC, H] block-diagonal seed expansion. This removes the
-        # whole [rows, HC] x_K GEMM and its HBM round trip, exactly.
+        # whole [rows, HC] x_K GEMM and its device-memory round trip, exactly.
         WK, bK = _DenseParams(HC, x.shape[-1], glorot_uniform(), name="lin_K")()
         WV, bV = _DenseParams(HC, x.shape[-1], glorot_uniform(), name="lin_V")()
 
         att_r = self.param("att_r", xavier_uniform_torch_fans((1, H, C)), (1, H, C))
         att_flat = att_r.reshape(HC)
-        # TPU layout note: everything stays 2-D with >=128-wide minor dims.
-        # [rows, H, C] layouts (C on the lanes) and [rows, H] segment ops
-        # both measure ~10-100x slower through XLA-TPU gather/scatter/reduce
-        # tiling. So: (1) the per-head seed scores alpha = sum_c K[:,h,c] *
-        # att_r[h,c] become one MXU GEMM against a block-diagonal [HC, H]
-        # expansion of the seed; (2) the attention weights e = exp(leaky(
-        # alpha) - globalmax) are applied at the SOURCE rows, and ride along
-        # in the value gather + flat segment-sum as H extra denominator
-        # columns (lane-padded when the Pallas reduce is active).
+        # The per-head seed scores alpha = sum_c K[:,h,c] * att_r[h,c] become
+        # one GEMM against a block-diagonal [HC, H] expansion of the seed,
+        # and the attention weights e = exp(leaky(alpha) - globalmax) are
+        # applied at the SOURCE rows and ride along in the value gather +
+        # flat segment-sum as H extra denominator columns.
         blk = (
             jax.lax.broadcasted_iota(jnp.int32, (HC, H), 0) // C
             == jax.lax.broadcasted_iota(jnp.int32, (HC, H), 1)
@@ -289,68 +223,14 @@ class PMA(nn.Module):
         Wa = WK @ proj  # [in_dim, H] (f32 param math; tiny)
         ba = bK @ proj  # [H]
         xc = x.astype(self.dtype) if self.dtype is not None else x
-        # ONE fused MXU GEMM computes [values | seed scores]: the H-column
-        # alpha GEMM — and its dWa / dx backward GEMMs — fold into lin_V's
-        # (an 8-wide GEMM costs a full pass over x either way; the fused
-        # [in, HC+H] kernel adds 8 columns to a tile XLA pads to 128 lanes
-        # regardless). Biases stay separate adds so alpha keeps its f32
-        # bias math; both fuse into the consumers.
-        from allset_tpu.ops.pallas_pack import (
-            pack_active, packed_width, pma_pack,
-        )
-
-        use_pack = (
-            self.softmax_mode != "segment"
-            and not self.return_attention
-            and pack_active(d, HC, H)
-        )
-        # ShardedDirection + supported shapes: route through the fused
-        # sharded spmm+epilogue (parallel/sharded.py) further below; the
-        # decision is hoisted here so the score/pack chain can be pinned
-        # replicated at its head (GSPMD otherwise reshards it through
-        # dynamic-slice/all-gather round trips around the shard_map)
-        _shard_epi = False
-        if (
-            getattr(d, "mesh", None) is not None
-            and not self.return_attention
-            and self.softmax_mode != "segment"
-        ):
-            from allset_tpu.parallel.sharded import sharded_epilogue_active
-
-            _shard_epi = sharded_epilogue_active(
-                d, HC, H, self.num_layers, self.out_dim
-            )
-        if use_pack:
-            # fused score+pack (ops/pallas_pack.py): the GEMM emits yf
-            # lane-padded with zero Wf columns (the HC+H -> WP pad already
-            # existed physically in the tiled layout), then two Pallas
-            # passes build the packed exchange table — replacing the bias
-            # fusions, the narrow f32 [N, H] alpha chain, the _colmax
-            # relayout, and the concat. Backward is the exact composition
-            # vjp (pallas_pack._pack_ref), so gradients are unchanged.
-            WP = packed_width(HC, H)
-            Wf = jnp.concatenate(
-                [WV, Wa, jnp.zeros((WV.shape[0], WP - HC - H), WV.dtype)],
-                axis=1,
-            )
-            yf = xc @ Wf.astype(xc.dtype)
-            from allset_tpu.ops.pallas_pma import interpret_mode as _interp
-
-            w = pma_pack(H, HC, WP, self.negative_slope, 1024, _interp(),
-                         yf, bV, ba)
-            x_V = alpha = None
-        else:
-            Wf = jnp.concatenate([WV, Wa], axis=1)  # [in_dim, HC+H] f32 params
-            yf = xc @ Wf.astype(xc.dtype)
-            if _shard_epi:
-                from jax.sharding import NamedSharding, PartitionSpec
-
-                yf = jax.lax.with_sharding_constraint(
-                    yf, NamedSharding(d.mesh, PartitionSpec())
-                )
-            x_V = yf[:, :HC] + bV.astype(yf.dtype)
-            alpha = yf[:, HC : HC + H].astype(jnp.float32) + ba[None, :]
-            alpha = nn.leaky_relu(alpha, self.negative_slope)
+        # ONE GEMM computes [values | seed scores]: the H-column alpha GEMM
+        # and its backward GEMMs fold into lin_V's. Biases stay separate
+        # adds so alpha keeps its f32 bias math; both fuse into consumers.
+        Wf = jnp.concatenate([WV, Wa], axis=1)  # [in_dim, HC+H] f32 params
+        yf = xc @ Wf.astype(xc.dtype)
+        x_V = yf[:, :HC] + bV.astype(yf.dtype)
+        alpha = yf[:, HC : HC + H].astype(jnp.float32) + ba[None, :]
+        alpha = jax.nn.leaky_relu(alpha, self.negative_slope)
 
         if self.softmax_mode == "segment":
             # parity path: per-segment max softmax; does not compose with
@@ -374,97 +254,62 @@ class PMA(nn.Module):
             # Padded entries carry out-of-range src/dst ids: the clip-gather
             # reads garbage rows but the reduce drops their segment, and the
             # gather's backward drops them symmetrically — no masking needed.
-            if not use_pack:
-                gmax = jax.lax.stop_gradient(_colmax(alpha))  # [H]
-                gmax = jnp.maximum(gmax, 0.0)  # empty-table guard (exp finite)
-                e = jnp.exp(alpha - gmax[None, :]).astype(x_V.dtype)  # <= 1
-                parts = [x_V * _head_expand(e, C), e]
-                if kernel_active(d, HC + H) and (HC + H) % 128 != 0:
-                    # Pallas DMA needs a lane-aligned minor dim; pad the
-                    # packed [values | denom] table to the next 128 multiple
-                    pad = (-(HC + H)) % 128
-                    parts.append(jnp.zeros((x_V.shape[0], pad), x_V.dtype))
-                w = jnp.concatenate(parts, axis=1)  # [N, HC+H(+pad)]
-
-            if _shard_epi:
-                # ShardedDirection: run the fused epilogue PER SHARD
-                # inside the exchange's shard_map (parallel/sharded.py) —
-                # the all-gather then moves the narrow [rows, HC]
-                # epilogue output instead of the wide [rows, WP]
-                # aggregate, and the epilogue compute divides by the
-                # mesh size instead of replicating.
-                from allset_tpu.parallel.sharded import sharded_pma_epilogue
-
-                g0, b0 = _LNParams(HC, name="ln0")()
-                Wrff, brff = _MLPParams(HC, self.out_dim,
-                                        self.num_layers, name="rFF")()
-                g1, b1 = _LNParams(self.out_dim, name="ln1")()
-                from allset_tpu.ops.pallas_pma import interpret_mode
-
-                return sharded_pma_epilogue(
-                    w, d, att_flat, g0, b0, Wrff, brff, g1, b1,
-                    heads=H, blk=1024, interpret=interpret_mode(),
-                    relu=self.fold_relu,
-                )
-
+            gmax = jax.lax.stop_gradient(jnp.max(alpha, axis=0))  # [H]
+            gmax = jnp.maximum(gmax, 0.0)  # empty-table guard (exp finite)
+            e = jnp.exp(alpha - gmax[None, :]).astype(x_V.dtype)  # <= 1
+            w = jnp.concatenate([x_V * _head_expand(e, C), e], axis=1)
             agg = dir_spmm(w, d)  # fused gather+reduce, permute-free bwd
-
-            from allset_tpu.ops.pallas_pma import (
-                epilogue_active, pma_epilogue,
-            )
-
-            if not self.return_attention and epilogue_active(
-                HC, H, self.num_layers, self.out_dim
-            ):
-                # fused epilogue: divide + seed + ln0 + rFF + relu residual
-                # + ln1, one Pallas pass fwd and one bwd (ops/pallas_pma.py).
-                # Params declared through the same skeletons as the module
-                # path below — identical names/shapes/inits, so checkpoints
-                # and the vmapped-runs fallback interchange freely.
-                g0, b0 = _LNParams(HC, name="ln0")()
-                Wrff, brff = _MLPParams(HC, self.out_dim,
-                                        self.num_layers, name="rFF")()
-                g1, b1 = _LNParams(self.out_dim, name="ln1")()
-                from allset_tpu.ops.pallas_pma import interpret_mode
-
-                return pma_epilogue(H, 1024, interpret_mode(),
-                                    self.fold_relu, agg, att_flat,
-                                    g0, b0, Wrff, brff, g1, b1)
-
-            denom_h = jnp.maximum(agg[:, HC : HC + H], 1e-16)  # [M, H]
-            out = agg[:, :HC] / _head_expand(denom_h, C)
+            out, denom_h = head_normalize(agg, H)
             if self.return_attention:
                 # per-entry weight = e[src] / denom[dst] (debug/parity API;
-                # single-chip Directions only — sharded src/dst are [D, .])
+                # single-device Directions only — sharded src/dst are [D, .])
                 assert getattr(d, "mesh", None) is None, (
-                    "return_attention requires a single-chip Direction"
+                    "return_attention requires a single-device Direction"
                 )
                 e_j = jnp.take(e, d.src, axis=0, mode="clip")
                 den_j = jnp.take(denom_h, d.dst, axis=0, mode="clip")
                 attn = (e_j.astype(jnp.float32) / den_j.astype(jnp.float32))
 
-        out = out + att_flat[None, :].astype(out.dtype)  # seed residual (src/layers.py:153)
-        out = nn.LayerNorm(epsilon=LN_EPS, dtype=self.dtype, name="ln0")(out)
-        rff = MLP(
-            hidden_channels=H * C,
-            out_channels=self.out_dim,
-            num_layers=self.num_layers,
-            dropout=0.0,
-            normalization="None",
-            dtype=self.dtype,
-            name="rFF",
-        )
-        out = nn.LayerNorm(epsilon=LN_EPS, dtype=self.dtype, name="ln1")(
-            out + nn.relu(rff(out, train)).astype(out.dtype)
-        )
-        if self.fold_relu:
-            out = nn.relu(out)
+        out = pma_epilogue(out, att_flat, self.out_dim, self.num_layers,
+                           self.dtype, self.fold_relu, train)
         if self.return_attention:
             return out, attn
         return out
 
 
-class HalfNLHconv(nn.Module):
+def head_normalize(agg: Array, heads: int):
+    """Split PMA's aggregate [M, HC + H] = [weighted values | per-head
+    softmax denominators] into the per-head-normalized values [M, HC] and
+    the (floored) denominators [M, H]."""
+    HC = agg.shape[1] - heads
+    denom_h = jnp.maximum(agg[:, HC:], 1e-16)
+    return agg[:, :HC] / _head_expand(denom_h, HC // heads), denom_h
+
+
+def pma_epilogue(out: Array, seed: Array, out_dim: int, num_layers: int,
+                 dtype=None, relu: bool = False, train: bool = False) -> Array:
+    """PMA's row-local tail (reference ``src/layers.py:150-157``):
+    ``ln1(z + relu(rFF(z)))`` with ``z = ln0(out + seed)``, then a relu
+    when ``relu``. Call it inside a compact method: its ``ln0``, ``rFF``
+    and ``ln1`` submodules bind to the caller's scope."""
+    out = out + seed[None, :].astype(out.dtype)  # seed residual (src/layers.py:153)
+    out = core.LayerNorm(epsilon=LN_EPS, dtype=dtype, name="ln0")(out)
+    rff = MLP(
+        hidden_channels=seed.shape[-1],
+        out_channels=out_dim,
+        num_layers=num_layers,
+        dropout=0.0,
+        normalization="None",
+        dtype=dtype,
+        name="rFF",
+    )
+    out = core.LayerNorm(epsilon=LN_EPS, dtype=dtype, name="ln1")(
+        out + jax.nn.relu(rff(out, train)).astype(out.dtype)
+    )
+    return jax.nn.relu(out) if relu else out
+
+
+class HalfNLHconv(core.Module):
     """One directed half-layer of multiset message passing
     (reference ``src/layers.py:582-656``).
 
@@ -492,7 +337,7 @@ class HalfNLHconv(nn.Module):
     # relu idempotent, so the flag only matters on the attention path.
     fold_relu: bool = False
 
-    @nn.compact
+    @core.compact
     def __call__(
         self,
         x: Array,
@@ -522,8 +367,8 @@ class HalfNLHconv(nn.Module):
                 dtype=self.dtype,
                 name="f_enc",
             )(x, train)
-        x = nn.relu(x)
-        x = nn.Dropout(self.dropout)(x, deterministic=not train)
+        x = jax.nn.relu(x)
+        x = core.Dropout(self.dropout)(x, deterministic=not train)
         dtype = x.dtype
         x = dir_spmm(x, d, norm=d.norm, reduce=aggr, norm_grad=self.norm_grad).astype(dtype)
         if self.num_layers > 0:
@@ -537,5 +382,5 @@ class HalfNLHconv(nn.Module):
                 dtype=self.dtype,
                 name="f_dec",
             )(x, train)
-        x = nn.relu(x)
+        x = jax.nn.relu(x)
         return x

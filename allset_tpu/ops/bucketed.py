@@ -1,21 +1,17 @@
-"""Bucketed exchange: keep every gather table under the VMEM cliff.
+"""Bucketed exchange: slice every gather table into row ranges.
 
-XLA's row gather runs at ~4.6-6.5 ns/row while the table fits the chip's
-VMEM window (~110 MB on v5e at width 384) and ~16.6 ns/row above it —
-a hard 2.5-3.3x cliff measured on v5e (benchmarks/exp_cliff.py). At the
-4x bench scale (2.3M incidence entries) every table of the exchange sits
-above the cliff and gathers dominate the step.
+A row gather whose table outgrows a fast-memory window (a cache level, or
+a software-managed scratchpad) can slow per row by a constant factor. This
+module keeps each gather's table under ``bucket_rows`` rows.
 
 Column-tiling cannot help: splitting a gather multiplies the row count
-by the number of tiles, and the gather is row-rate-bound (k slices under
-the cliff at 4.6 ns x k passes >= one pass at 16.6 ns for k >= 4).
-Row-bucketing the ENTRIES does: partition the incidence entries by the
-gather-side id range so bucket k only ever reads table rows
-[k*B, (k+1)*B) — a static row slice under the cliff — while each
-bucket's entries stay sorted by the reduce side, so every bucket runs
-the same Pallas sorted-segment-sum into a full-size partial output;
-partials sum. Total gathered rows are unchanged (each entry is gathered
-exactly once, from a small table).
+by the number of tiles. Row-bucketing the ENTRIES does: partition the
+incidence entries by the gather-side id range so bucket k only ever reads
+table rows [k*B, (k+1)*B) — a static row slice — while each bucket's
+entries stay sorted by the reduce side, so every bucket runs the same
+sorted segment-sum into a full-size partial output; partials sum. Total
+gathered rows are unchanged (each entry is gathered exactly once, from a
+small table).
 
 The forward gathers from the SRC table and the backward from the DST
 (cotangent) table, so the two passes need independent bucketings:
@@ -28,13 +24,12 @@ backward aux (both: group by node bucket, reduce by edge) and vice
 versa, so an Incidence carries just two structures (by_node, by_edge).
 
 Overhead vs the unbucketed fused spmm: (K-1) extra partial-output
-tables summed per pass — small next to the 2.5-3.3x gather saving at
-scale — and zero change at K == 1 shapes (the builder only attaches
-buckets when a table side exceeds ``bucket_rows``).
+tables summed per pass. The aux is built only when the caller passes a
+``bucket_rows`` threshold that a table side exceeds; by default it is off,
+and whether a GPU has a cliff worth it is an open measurement.
 
 Reference context: the torch reference has no analog (single dynamic
-COO on cuSPARSE, ``src/utils.py:59-82``); this is TPU-memory-hierarchy
-design.
+COO on cuSPARSE, ``src/utils.py:59-82``).
 """
 
 from __future__ import annotations
@@ -47,7 +42,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from allset_tpu.ops.fold import fold_gather
+from allset_tpu.ops.fold import fold_gather, fold_segsum
 
 Array = jax.Array
 
@@ -58,18 +53,14 @@ class BucketSide:
     """One bucket of one pass: gather rows [table_offset, +table_rows) of
     the gather-side table, reduce by ``red_ids`` (sorted, full reduce-side
     id space). Padded entries carry gather_local == table_rows (clip) and
-    red_ids == num_red_padded + 1 (outside every kernel block)."""
+    red_ids == num_red (out of range: the reduce drops them)."""
 
     gather_local: Array  # i32[nnz_pad] row ids within the table slice
     red_ids: Array  # i32[nnz_pad] reduce segment ids, ascending
     perm_canon: Array  # i32[nnz_pad] canonical entry positions (norm gather)
-    block_indptr: Array  # i32[num_red_padded // s_blk + 1]
     table_offset: int = dataclasses.field(metadata=dict(static=True))
     table_rows: int = dataclasses.field(metadata=dict(static=True))
     num_red: int = dataclasses.field(metadata=dict(static=True))
-    num_red_padded: int = dataclasses.field(metadata=dict(static=True))
-    s_blk: int = dataclasses.field(metadata=dict(static=True))
-    chunk: int = dataclasses.field(metadata=dict(static=True))
     nnz: int = dataclasses.field(metadata=dict(static=True))
 
 
@@ -88,17 +79,13 @@ def build_bucket_side(
     num_gather: int,
     num_red: int,
     bucket_rows: int,
-    s_blk: int,
-    chunk: int,
 ) -> Tuple[BucketSide, ...]:
     """Host-side: partition VALID entries (canonical order) by gather-id
-    range, sort each bucket by reduce id, pad for the kernel."""
+    range, sort each bucket by reduce id, pad to a static bucket."""
     from allset_tpu.graph import native
-    from allset_tpu.ops.pallas_segment import pad_for_kernel
+    from allset_tpu.graph.incidence import pad_bucket
 
     K = max(1, -(-num_gather // bucket_rows))
-    num_red_padded = -(-num_red // s_blk) * s_blk
-    boundaries = np.arange(0, num_red_padded + s_blk, s_blk)
     sides = []
     for k in range(K):
         lo = k * bucket_rows
@@ -109,7 +96,7 @@ def build_bucket_side(
         order = native.stable_argsort(r, num_red + 1)
         g, r, pos = g[order], r[order], sel[order]
         nnz_k = len(sel)
-        npad = pad_for_kernel(max(nnz_k, 1), chunk)
+        npad = pad_bucket(max(nnz_k, 1))
         pad = npad - nnz_k
         sides.append(
             BucketSide(
@@ -118,7 +105,7 @@ def build_bucket_side(
                 ),
                 red_ids=jnp.asarray(
                     np.concatenate(
-                        [r, np.full(pad, num_red_padded + 1, np.int32)]
+                        [r, np.full(pad, num_red, np.int32)]
                     )
                 ),
                 perm_canon=jnp.asarray(
@@ -126,15 +113,9 @@ def build_bucket_side(
                         [pos.astype(np.int32), np.zeros(pad, np.int32)]
                     )
                 ),
-                block_indptr=jnp.asarray(
-                    np.searchsorted(r, boundaries).astype(np.int32)
-                ),
                 table_offset=lo,
                 table_rows=rows,
                 num_red=num_red,
-                num_red_padded=num_red_padded,
-                s_blk=s_blk,
-                chunk=chunk,
                 nnz=nnz_k,
             )
         )
@@ -143,13 +124,11 @@ def build_bucket_side(
 
 def _one_pass(table: Array, sides, norm_traced, has_norm: bool) -> Array:
     """Σ_k sorted-reduce(gather(table slice k)) -> [num_red, F] in
-    table.dtype (f32 accumulation inside the kernel; K > 1 partials sum
+    table.dtype (f32 accumulation inside each reduce; K > 1 partials sum
     in f32). Entry weights come from ``norm_traced`` (canonical order)
     via each bucket's perm_canon — a [nnz] gather, negligible next to
     the [nnz, F] row traffic. Padded entries may read nonzero norms;
     their out-of-range reduce ids drop them either way."""
-    from allset_tpu.ops.exchange import _KernelView, _sorted_sum
-
     out = None
     for s in sides:
         sl = jax.lax.slice_in_dim(table, s.table_offset,
@@ -158,10 +137,7 @@ def _one_pass(table: Array, sides, norm_traced, has_norm: bool) -> Array:
         if has_norm:
             w = fold_gather(norm_traced, s.perm_canon)
             msgs = msgs * w[:, None].astype(msgs.dtype)
-        part = _sorted_sum(
-            msgs, s.red_ids, s.block_indptr, s.num_red, s.num_red_padded,
-            _KernelView(s.s_blk, s.chunk),
-        )
+        part = fold_segsum(msgs, s.red_ids, s.num_red)
         if len(sides) == 1:
             return part
         out = part.astype(jnp.float32) if out is None else out + part.astype(jnp.float32)
@@ -192,7 +168,7 @@ _bspmm.defvjp(_bspmm_fwd, _bspmm_bwd)
 
 def bucketed_spmm(w: Array, bd: BucketedDir, norm: Optional[Array]) -> Array:
     """out[m] = Σ_{i: dst_i = m} norm_i * w[src_i] with every gather
-    table sliced under the VMEM cliff. ``norm`` (traced, canonical entry
+    table sliced to at most ``bucket_rows`` rows. ``norm`` (traced, canonical entry
     order) multiplies the baked per-bucket norms when given; gradients
     flow to ``w`` only (LearnMask norm gradients take the unbucketed
     fused path — ops/exchange._core_reduce routes accordingly)."""

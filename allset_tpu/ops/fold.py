@@ -3,20 +3,17 @@
 The reference's canonical protocol trains ``runs`` (default 20) statistical
 replicas of the same model on the same graph (``src/train.py:458-499``);
 the Trainer vmaps them on-device. Under plain vmap, XLA serves every
-gather/segment-reduce as a BATCHED op — R separate row-rate-bound passes
-over the incidence — and ``pallas_call`` (ANY-memory block specs) has no
-workable TPU batching rule at all.
+gather/segment-reduce as a BATCHED op — R separate passes over the
+incidence, each paying the per-row index traffic again.
 
 Both hot ops are therefore JAX primitives here, with custom batching
 rules that FOLD the mapped axis into the feature axis:
 
   * ``table_gather_p``:  [N, F] table batched over R  ->  one [N, R*F]
-    table and ONE wide row gather (row-rate-bound: nnz rows once, not
-    R times; width is nearly free on TPU).
+    table and ONE wide row gather (nnz index reads once, not R times).
   * ``sorted_segsum_p``: [nnz, F] messages batched over R  ->  one
-    [nnz, R*F] sorted segment-sum through the SAME Pallas CSR kernel
-    (``ops/pallas_segment.py``); per-run accumulation is untouched (the
-    one-hot contraction never mixes columns).
+    [nnz, R*F] sorted segment-sum; per-run accumulation is untouched
+    (the reduce never mixes columns).
 
 Outputs return with the batch axis at position 1 ([rows, R, F]), so
 chained exchange ops stay folded with zero data movement; a moveaxis is
@@ -28,6 +25,7 @@ Autodiff never sees these primitives: every caller wraps them in a
 
 from __future__ import annotations
 
+import functools
 import math
 
 import jax
@@ -37,14 +35,6 @@ from jax.extend.core import Primitive
 from jax.interpreters import batching, mlir
 
 Array = jax.Array
-
-LANE = 128
-# folded-width budget for the Pallas kernel's RAW scratch estimate (acc
-# f32 + double-buffered chunks + output block). Mosaic's actual scoped
-# allocation runs ~2.2x the raw sum, and pallas_segment raises the
-# scoped-vmem limit to 2.5x (capped 110 MiB of the v5e's 128 MiB), so
-# the raw estimate must stay under ~44 MiB.
-_VMEM_BUDGET = 40 * 2**20
 
 
 def _not_mapped(d) -> bool:
@@ -68,8 +58,8 @@ def _gather_batch(args, dims):
     table, idx = args
     bt, bi = dims
     if not _not_mapped(bi):
-        # batched indices (different graphs per lane): one flat gather with
-        # per-lane row offsets — still a single hardware gather pass.
+        # batched indices (different graphs per batch member): one flat
+        # gather with per-member row offsets — still a single gather pass.
         im = jnp.moveaxis(idx, bi, 0)  # [R, nnz]
         R, nnz = im.shape
         if _not_mapped(bt):
@@ -112,100 +102,39 @@ def fold_gather(table: Array, idx: Array) -> Array:
 sorted_segsum_p = Primitive("allset_sorted_segsum")
 
 
-def _segsum_impl(
-    msgs: Array,
-    ids: Array,
-    indptr: Array,
-    *,
-    num_seg: int,
-    num_seg_padded: int,
-    s_blk: int,
-    chunk: int,
-    use_pallas: bool,
-    interpret: bool,
-) -> Array:
-    if use_pallas:
-        from allset_tpu.ops.pallas_segment import _sorted_segment_sum_fwd
-
-        out = _sorted_segment_sum_fwd(
-            msgs, ids.reshape(-1, LANE), indptr, num_seg_padded, s_blk,
-            chunk, interpret,
-        )
-        return out[:num_seg]
+def _segsum_impl(msgs: Array, ids: Array, *, num_seg: int) -> Array:
+    # float32 accumulation whatever the message dtype (bf16 sums would
+    # lose the low bits of every long segment); result in msgs.dtype
     return jax.ops.segment_sum(
         msgs.astype(jnp.float32), ids, num_segments=num_seg,
         indices_are_sorted=True,
     ).astype(msgs.dtype)
 
 
-def _segsum_abstract(msgs, ids, indptr, *, num_seg, **_):
+def _segsum_abstract(msgs, ids, *, num_seg):
     return ShapedArray((num_seg, msgs.shape[1]), msgs.dtype)
 
 
-def _fold_kernel_params(W: int, dtype, s_blk: int, chunk: int):
-    """Can the Pallas kernel serve folded width W? Shrink the DMA chunk to
-    fit VMEM (always safe: buffers carry one spare chunk of padding at the
-    ORIGINAL chunk size, and smaller chunks only read less far past the
-    end)."""
-    if W % LANE:
-        return False, chunk
-    per = 2 if dtype == jnp.bfloat16 else 4
-
-    def vmem(ch):
-        return (
-            s_blk * W * 4  # f32 accumulator
-            + 2 * ch * W * per  # double-buffered message chunks
-            + s_blk * W * per  # output block
-            + 2 * ch * 4  # id chunks
-        )
-
-    ch = chunk
-    while ch > LANE and vmem(ch) > _VMEM_BUDGET:
-        ch //= 2
-    return vmem(ch) <= _VMEM_BUDGET, ch
-
-
-def _segsum_batch(args, dims, *, num_seg, num_seg_padded, s_blk, chunk,
-                  use_pallas, interpret):
-    msgs, ids, indptr = args
-    bm, bi, bp = dims
-    if not (_not_mapped(bi) and _not_mapped(bp)):
-        # batched segment structure (different graphs per lane): plain
-        # per-lane XLA reduce — correctness fallback, not a hot path.
-        # (indptr is unused here; a batched-indptr-only case broadcasts
-        # the shared ids across lanes.)
-        mm = jnp.moveaxis(msgs, bm, 0) if not _not_mapped(bm) else msgs
-        if _not_mapped(bi):
-            ii = jnp.broadcast_to(
-                ids, (indptr.shape[bp],) + ids.shape
-            )
-        else:
-            ii = jnp.moveaxis(ids, bi, 0)
-        f = lambda m, i: jax.ops.segment_sum(
-            m.astype(jnp.float32), i, num_segments=num_seg,
-            indices_are_sorted=True,
-        ).astype(msgs.dtype)
+def _segsum_batch(args, dims, *, num_seg):
+    msgs, ids = args
+    bm, bi = dims
+    if not _not_mapped(bi):
+        # batched segment structure (different graphs per batch member):
+        # plain per-member reduce — correctness fallback, not a hot path.
+        ii = jnp.moveaxis(ids, bi, 0)
+        f = functools.partial(_segsum_impl, num_seg=num_seg)
         if _not_mapped(bm):
             out = jax.vmap(lambda i: f(msgs, i))(ii)
         else:
-            out = jax.vmap(f)(mm, ii)
+            out = jax.vmap(f)(jnp.moveaxis(msgs, bm, 0), ii)
         return out, 0
-    # fold the mapped axis into the feature width: one kernel pass for all
-    # runs (the one-hot MXU contraction is column-separable, so per-run
-    # accumulation is bit-identical to the unbatched kernel)
+    # fold the mapped axis into the feature width: one pass for all runs
+    # (columns never mix, so each run's sums are those of an unbatched call)
     m = jnp.moveaxis(msgs, bm, 1)  # [nnz, R, F] (free when bm == 1)
     tail = m.shape[2:]
-    nnz, R, F = m.shape[0], m.shape[1], math.prod(tail)
-    W = R * F
-    pal, ch = (False, chunk)
-    if use_pallas:
-        pal, ch = _fold_kernel_params(W, m.dtype, s_blk, chunk)
-    out = sorted_segsum_p.bind(
-        m.reshape(nnz, W), ids, indptr,
-        num_seg=num_seg, num_seg_padded=num_seg_padded, s_blk=s_blk,
-        chunk=ch, use_pallas=pal, interpret=interpret,
-    )
-    return out.reshape((num_seg, R) + tail), 1
+    nnz, W = m.shape[0], math.prod(m.shape[1:])
+    out = sorted_segsum_p.bind(m.reshape(nnz, W), ids, num_seg=num_seg)
+    return out.reshape((num_seg,) + m.shape[1:2] + tail), 1
 
 
 sorted_segsum_p.def_impl(_segsum_impl)
@@ -216,26 +145,9 @@ mlir.register_lowering(
 )
 
 
-def fold_segsum(
-    msgs: Array,
-    ids: Array,
-    indptr: Array | None,
-    num_seg: int,
-    num_seg_padded: int,
-    s_blk: int,
-    chunk: int,
-    use_pallas: bool,
-    interpret: bool = False,
-) -> Array:
-    """Sorted segment-sum that folds vmapped runs into one kernel pass.
-    f32 accumulation, result in msgs.dtype. NOT differentiable — callers
-    wrap it in custom_vjp (the backward is a fold_gather of the cotangent).
-    """
-    if indptr is None:
-        indptr = jnp.zeros((1,), jnp.int32)
-        use_pallas = False
-    return sorted_segsum_p.bind(
-        msgs, ids, indptr,
-        num_seg=num_seg, num_seg_padded=num_seg_padded, s_blk=s_blk,
-        chunk=chunk, use_pallas=use_pallas, interpret=interpret,
-    )
+def fold_segsum(msgs: Array, ids: Array, num_seg: int) -> Array:
+    """Sorted segment-sum (``ids`` ascending; out-of-range ids drop) that
+    folds vmapped runs into one pass. f32 accumulation, result in
+    msgs.dtype. NOT differentiable — callers wrap it in custom_vjp (the
+    backward is a fold_gather of the cotangent)."""
+    return sorted_segsum_p.bind(msgs, ids, num_seg=num_seg)

@@ -10,16 +10,15 @@ segment-softmax, and the gather/scatter idiom of ``src/models.py:627-632``):
   * ``segment_softmax``  — softmax of entry scores grouped by dst (for PMA /
                            attention pooling; == the SDDMM-normalize step)
 
-TPU-first design notes:
+Design notes:
   * All shapes are static; ragged hypergraphs are handled by padding the nnz
     axis to a bucket. The padding convention is **out-of-range segment ids**:
     padded entries carry ``segment_ids == num_segments``, which XLA scatter
     drops (FILL_OR_DROP), so no dummy output row is ever materialized.
   * ``segment_softmax`` takes an explicit entry mask so padded entries
     contribute exactly 0 probability without NaNs.
-  * These XLA-native versions are the reference semantics; the Pallas
-    speed-of-light versions in ``ops/pallas_segment.py`` are drop-in
-    replacements validated against them.
+  * These are the reference semantics; the sorted-order exchange ops in
+    ``ops/exchange.py`` are validated against them.
 
 Reduction semantics match torch_scatter 2.0.4 (the reference's backend):
   * mean divides by per-segment counts clamped to >= 1 (empty segments -> 0)

@@ -1,10 +1,10 @@
-"""Multi-host initialization and hybrid ICI/DCN meshes.
+"""Multi-host initialization and two-level (within / across host) meshes.
 
 The reference has no distributed runtime at all (SURVEY.md §2.5); this is
-the net-new layer. Design (scaling-book recipe): processes join via
+the net-new layer. Design: processes join via
 ``jax.distributed.initialize``; a mesh is laid out so the edge-partition
-axis rides ICI within a slice and only replicated/reduced traffic crosses
-DCN; XLA owns the transport.
+axis stays within a host and only replicated/reduced traffic crosses
+hosts; XLA owns the transport.
 
 On a single host these helpers degrade to the local-device mesh, so all
 code paths are exercised by the CPU-mesh tests.
@@ -27,8 +27,9 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Join the jax distributed runtime. No-ops on single-process runs and
-    inside environments (TPU pods) where jax auto-detects everything."""
+    """Join the jax distributed runtime. No-op on single-process runs.
+    Pass all three arguments where the environment tells JAX nothing of
+    the cluster."""
     if num_processes is not None and num_processes <= 1:
         return
     kwargs = {}
@@ -42,17 +43,18 @@ def initialize_multihost(
 
 
 def hybrid_mesh(
-    ici_axis: str = EDGE_AXIS,
-    dcn_axis: str = "replica",
+    host_axis: str = EDGE_AXIS,
+    cross_axis: str = "replica",
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
-    """2-D (dcn, ici) mesh: incidence edge-partitioning inside each slice
-    (ICI), data/replica parallelism across slices (DCN).
+    """2-D (cross, host) mesh: incidence edge-partitioning within each
+    host, data/replica parallelism across hosts.
 
     With one process this is a (1, n_local) mesh — identical program,
-    exercised in tests. On multi-host TPU, uses
+    exercised in tests. With several processes, uses
     ``jax.experimental.mesh_utils.create_hybrid_device_mesh`` so the
-    edge-partition collectives (psum of segment partials) never cross DCN.
+    edge-partition collectives (psum of segment partials) never cross
+    hosts.
     """
     if devices is None:
         devices = jax.devices()
@@ -68,7 +70,7 @@ def hybrid_mesh(
         )
     else:
         dmesh = np.asarray(devices).reshape(1, len(devices))
-    return Mesh(dmesh, (dcn_axis, ici_axis))
+    return Mesh(dmesh, (cross_axis, host_axis))
 
 
 def mesh_summary(mesh: Mesh) -> str:

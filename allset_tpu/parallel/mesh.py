@@ -2,15 +2,15 @@
 
 The reference has **zero** distributed code (single process, single device,
 ``src/train.py:430-437``; SURVEY.md §2.5). This layer is net-new, designed
-the TPU way: the structural analog of sequence parallelism for hypergraphs
-is partitioning the **nnz incidence entries** across chips.
+so that the structural analog of sequence parallelism for hypergraphs is
+partitioning the **nnz incidence entries** across devices.
 
 Strategy (GSPMD, "annotate shardings, let XLA insert collectives"):
   * incidence arrays (node/edge/norm/mask) are sharded along the nnz axis
     with ``PartitionSpec('edge')``;
   * node/hyperedge feature tables and parameters are replicated;
-  * each chip computes segment-reductions over its nnz shard into a
-    full-size output; XLA emits the partial-reduce + ``psum`` over ICI,
+  * each device computes segment-reductions over its nnz shard into a
+    full-size output; XLA emits the partial-reduce + ``psum``,
     which is exactly the two-level reduce SURVEY.md §7 calls for.
 
 Scaling beyond replicated features (sharded V/E tables + all-to-all halo
@@ -58,8 +58,8 @@ def shard_incidence(inc: Incidence, mesh: Mesh, axis_name: str = EDGE_AXIS) -> I
         edge=put(inc.edge),
         norm=put(inc.norm),
         mask=put(inc.mask),
-        # node-sorted aux is single-chip-only (the mesh path keeps XLA's
-        # partitionable ops), but shard it consistently so the pytree has
+        # node-sorted aux is used on one device only (the mesh path keeps
+        # the plain COO ops), but shard it consistently so the pytree has
         # uniform placement
         node_perm=opt(inc.node_perm),
         inv_node_perm=opt(inc.inv_node_perm),

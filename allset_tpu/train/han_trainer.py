@@ -40,12 +40,21 @@ class HANTrainConfig:
 
 
 def f1_scores(y_true: np.ndarray, y_pred: np.ndarray):
-    from sklearn.metrics import f1_score
-
-    return (
-        f1_score(y_true, y_pred, average="micro"),
-        f1_score(y_true, y_pred, average="macro"),
-    )
+    """(micro, macro) F1 over the classes present in either array — the
+    definitions of sklearn's ``f1_score(average=...)``. Micro-F1 of a
+    single-label problem equals accuracy; a class with no true and no
+    predicted member is absent, and 0/0 counts as 0."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    classes = np.union1d(y_true, y_pred)
+    tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in classes])
+    fp = np.array([np.sum((y_true != c) & (y_pred == c)) for c in classes])
+    fn = np.array([np.sum((y_true == c) & (y_pred != c)) for c in classes])
+    denom = 2 * tp + fp + fn
+    per_class = np.where(denom > 0, 2 * tp / np.maximum(denom, 1), 0.0)
+    micro_den = 2 * tp.sum() + fp.sum() + fn.sum()
+    micro = 2 * tp.sum() / micro_den if micro_den else 0.0
+    return float(micro), float(per_class.mean()) if len(classes) else 0.0
 
 
 def train_han(model, batch: Batch, num_real_nodes: int, cfg: HANTrainConfig,

@@ -4,7 +4,8 @@ The reference's only checkpointing is the HAN vertical's EarlyStopping
 (``src/DGL_HAN/utils.py:369-404``): best state_dict to a timestamped file,
 reloaded before the final test. The main pipeline has none (SURVEY.md §5.4).
 Here checkpointing is a first-class utility usable by every trainer:
-flax msgpack bytes on disk, plus an in-memory best-params tracker.
+a flat ``np.savez`` archive on disk (one array per leaf, keyed by its
+``/``-joined tree path), plus an in-memory best-params tracker.
 """
 
 from __future__ import annotations
@@ -15,18 +16,35 @@ from typing import Any, Optional
 
 import jax
 import numpy as np
-from flax import serialization
+
+
+def _leaf_key(path) -> str:
+    return "/".join(
+        str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+        for k in path
+    )
 
 
 def save_checkpoint(path: str, tree: Any) -> None:
+    """Write every leaf of ``tree`` to one uncompressed ``.npz`` at ``path``."""
     os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    arrays = {_leaf_key(p): np.asarray(v) for p, v in leaves}
     with open(path, "wb") as f:
-        f.write(serialization.to_bytes(tree))
+        np.savez(f, **arrays)
 
 
 def load_checkpoint(path: str, target: Any) -> Any:
-    with open(path, "rb") as f:
-        return serialization.from_bytes(target, f.read())
+    """Read a checkpoint into the structure of ``target`` (whose leaves
+    only name the paths; their values are ignored)."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(target)
+    with np.load(path, allow_pickle=False) as z:
+        missing = [_leaf_key(p) for p, _ in leaves if _leaf_key(p) not in z]
+        if missing:
+            raise KeyError(f"checkpoint {path} lacks {missing[:5]}")
+        return jax.tree_util.tree_unflatten(
+            treedef, [z[_leaf_key(p)] for p, _ in leaves]
+        )
 
 
 class EarlyStopping:

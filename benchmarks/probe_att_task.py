@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 @contextlib.contextmanager
 def dead_scores():
-    import flax.linen as fnn
+    import jax.nn as fnn
     import jax.numpy as jnp
 
     orig = fnn.leaky_relu

@@ -1,14 +1,27 @@
-"""Trace the bench training step and print per-op time, grouped."""
+"""Trace the bench training step on one GPU and print per-op device time.
+
+    python benchmarks/trace_step.py     # TRACE_MODEL=HCHA|HNHN|UniGCNII
+                                        # TRACE_DIR=<dir> (default .traces/)
+
+The trace of one scanned call of 8 steps lands in TRACE_DIR; the summary
+lists, for each device plane, the device time of every profiler line and
+the ops that take the most of it.
+"""
 
 import os
+import shutil
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
 
 import glob
 import jax
 import jax.numpy as jnp
-import numpy as np
+
+from allset_tpu.utils.profiling import measurement_device
+
+STEPS = 8
 
 
 def _build_zoo(which: str):
@@ -45,6 +58,7 @@ def _build_zoo(which: str):
 
 
 def main():
+    print(measurement_device())
     import bench
     import optax
     from allset_tpu.train.trainer import masked_nll, torch_adam
@@ -79,83 +93,44 @@ def main():
     @jax.jit
     def run_chunk(params, opt_state):
         (params, opt_state), losses = jax.lax.scan(
-            one_step, (params, opt_state), None, length=8
+            one_step, (params, opt_state), None, length=STEPS
         )
         return params, opt_state, losses[-1]
 
-    p, o, loss = run_chunk(params, opt_state)
-    float(np.asarray(jax.device_get(loss)))
+    jax.block_until_ready(run_chunk(params, opt_state))
 
-    tmpdir = "/tmp/jaxtrace"
-    os.system(f"rm -rf {tmpdir}")
+    tmpdir = os.environ.get("TRACE_DIR", os.path.join(_REPO, ".traces", "trace_step"))
+    shutil.rmtree(tmpdir, ignore_errors=True)
     jax.profiler.start_trace(tmpdir)
-    p, o, loss = run_chunk(params, opt_state)
-    float(np.asarray(jax.device_get(loss)))
+    jax.block_until_ready(run_chunk(params, opt_state))
     jax.profiler.stop_trace()
 
     files = glob.glob(f"{tmpdir}/**/*.xplane.pb", recursive=True)
     print("xplane files:", files)
     if not files:
         return
-    data = jax.profiler.ProfileData.from_serialized_xspace(
-        open(files[0], "rb").read()
-    )
-    import re
-
+    data = jax.profiler.ProfileData.from_file(files[0])
     for plane in data.planes:
-        if "TPU" not in plane.name and "tpu" not in plane.name.lower():
+        if not plane.name.startswith("/device:"):
             continue
+        print(f"== {plane.name}")
+        busiest, busiest_ns = None, 0
         for line in plane.lines:
-            if line.name != "XLA Ops":
-                continue
-            evs = [(ev.name, ev.duration_ns) for ev in line.events]
-            agg = {}
-            for name, dur in evs:
-                if name.startswith("%while"):
-                    continue
-                agg[name] = agg.get(name, 0) + dur
-            total = sum(agg.values())
-            print(f"XLA Ops exclusive-ish total: {total/1e6/8:.2f} ms/step")
-            items = sorted(agg.items(), key=lambda kv: -kv[1])
-            top = items[:40]
-            for name, dur in top:
-                print(f"   {dur/1e6/8:8.3f}  {name[:120]}")
-            tail = sum(d for _, d in items[40:])
-            print(f"   {tail/1e6/8:8.3f}  == tail ({len(items)-40} distinct ops)")
-            # bucket by shape-category
-            buckets = {}
-            for name, dur in items:
-                m = re.search(r"= \(?([a-z0-9]+)\[([0-9,]*)\]", name)
-                key = f"{m.group(1)}[{m.group(2)}]" if m else "other"
-                buckets[key] = buckets.get(key, 0) + dur
-            print("-- by result shape:")
-            for k, v in sorted(buckets.items(), key=lambda kv: -kv[1])[:25]:
-                print(f"   {v/1e6/8:8.3f}  {k}")
-            # roofline phases (BENCH_ROOFLINE.json classification; see
-            # that file for the per-phase bound arithmetic)
-            phases = {}
-            for name, dur in items:
-                lhs = name.split(" = ")[0]  # op's own name, not operands
-                m = re.search(r"= \(?([a-z0-9]+)\[([0-9,]*)\]", name)
-                shape = m.group(2).split(",") if m and m.group(2) else []
-                rows = int(shape[0]) if shape and shape[0] else 0
-                minor = int(shape[-1]) if len(shape) > 1 and shape[-1] else 0
-                if "_sorted_segment_sum" in lhs:
-                    ph = "pallas_reduce"
-                elif name.startswith("%prop"):
-                    ph = "fused_epilogue"
-                elif rows > 400000 and minor >= 256:
-                    ph = "nnz_gather"
-                elif minor >= 128 and rows >= 32768:
-                    ph = "wide_stream"
-                elif 0 < minor <= 8 or (len(shape) == 1 and rows > 1000):
-                    ph = "narrow_chain"
-                else:
-                    ph = "small_misc"
-                phases[ph] = phases.get(ph, 0) + dur
-            print("-- roofline phases (ms/step):")
-            for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
-                print(f"   {v/1e6/8:8.3f}  {k}")
+            ns = sum(ev.duration_ns for ev in line.events)
+            print(f"   line {line.name!r}: {ns / 1e6 / STEPS:8.3f} ms/step")
+            if ns > busiest_ns:
+                busiest, busiest_ns = line, ns
+        if busiest is None:
+            continue
+        agg = {}
+        for ev in busiest.events:
+            agg[ev.name] = agg.get(ev.name, 0) + ev.duration_ns
+        items = sorted(agg.items(), key=lambda kv: -kv[1])
+        print(f"-- top ops of {busiest.name!r} (ms/step):")
+        for name, dur in items[:40]:
+            print(f"   {dur / 1e6 / STEPS:8.3f}  {name[:120]}")
+        tail = sum(d for _, d in items[40:])
+        print(f"   {tail / 1e6 / STEPS:8.3f}  == tail ({max(len(items) - 40, 0)} distinct ops)")
 
 
 if __name__ == "__main__":

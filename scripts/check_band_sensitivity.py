@@ -1,6 +1,6 @@
 """Validate the accuracy bands actually catch numerics bugs.
 
-Per-family sensitivity (r4 VERDICT #3): for EVERY banded family, inject
+Per-family sensitivity: for EVERY banded family, inject
 deliberate bugs from the classes this codebase could realistically ship
 (wrong norms, dropped activations, lost gradients, missing mediators)
 and replay the FAST 5-run protocol of tests/test_bands.py with the
@@ -11,7 +11,7 @@ Injections come in two forms:
   * config overrides — a wrong flag value reaching the factory
     (the reference's bug surface: ``src/train.py:221-287`` flags)
   * code patches — a context manager monkeypatching a module seam
-    (the TPU build's own bug surface: fused-GEMM packing, stop_gradient
+    (this build's own bug surface: fused-GEMM packing, stop_gradient
     placement, norm pull-out scalings)
 
 Measured-neutral injections are kept and reported: a bug the bands
@@ -19,7 +19,7 @@ cannot catch is recorded as such, not hidden (r4 found that the
 deg_half_sym flag is a no-op for the flagship — PMA attention ignores
 ``norm`` entirely, faithful to ``src/layers.py:128-194``).
 
-Run (TPU): python scripts/check_band_sensitivity.py [family ...]
+Run: python scripts/check_band_sensitivity.py [family ...]
 """
 
 import contextlib
@@ -42,9 +42,9 @@ def _patch_uniform_attention():
     """PMA scores chain dead: leaky_relu(alpha) -> 0, so e = exp(0) = 1
     and attention degenerates to uniform mean pooling. The bug class is
     a lost score path in the fused [values | scores] GEMM packing
-    (ops/pallas_pack.py slices columns by offset — one off-by-HC and the
-    scores read zero pad)."""
-    import flax.linen as fnn
+    (nn/modules.PMA slices columns by offset — one off-by-HC and the
+    scores read the wrong columns)."""
+    import jax.nn as fnn
     import jax.numpy as jnp
 
     orig = fnn.leaky_relu
@@ -60,7 +60,7 @@ def _patch_frozen_attention():
     """stop_gradient misplaced onto the scores (one line from the real
     gmax stop_gradient at nn/modules.py): attention weights stay at
     init, only the value path trains."""
-    import flax.linen as fnn
+    import jax.nn as fnn
     import jax
 
     orig = fnn.leaky_relu
@@ -143,7 +143,7 @@ INJECTIONS = {
         ("wrong-degree-exponents (alpha=beta=0)",
          dict(hnhn_alpha=0.0, hnhn_beta=0.0), None),
     ]),
-    # families added r5 (VERDICT #8) — injections patched below
+    # families added r5 — injections patched below
     "UniGCNII": ("synthetic-mid/UniGCNII", [
         ("degree-norms-dropped", None, None),
     ]),

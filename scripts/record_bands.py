@@ -1,14 +1,14 @@
 """Record accuracy bands for the synthetic Table-2 protocol stand-ins.
 
 The raw AllSet archive is absent from this mount, so real-dataset
-accuracy parity cannot be pinned (VERDICT r2 missing #1). This script is
+accuracy parity cannot be pinned. This script is
 the substitute regression net: it runs the full statistical protocol
 (reference ``src/train.py:458-499`` semantics — fresh split + init per
 run, best-val-epoch selection) on the synthetic stand-ins, and checks
 the resulting mean ± std bands into ``BANDS.json``.
 ``tests/test_bands.py`` asserts future runs stay inside these bands.
 
-Run (on the TPU; ~15 min):  python scripts/record_bands.py
+Run on one accelerator:  python scripts/record_bands.py
 """
 
 from __future__ import annotations
@@ -27,8 +27,7 @@ CONFIGS = [
      dict(heads=8, mlp_hidden=256, classifier_hidden=128,
           all_num_layers=1, mlp_num_layers=2, classifier_num_layers=1),
      20, 500),
-    # method-family spread on synthetic-mid (2000 nodes — VERDICT r3
-    # weak #5: the 500-node synthetic's 125-node test split put 3-8
+    # method-family spread on synthetic-mid (2000 nodes — the 500-node synthetic's 125-node test split put 3-8
     # points of cross-run std in the bands, too loose to catch a
     # multi-point numerics regression; the 500-node test split is a
     # quarter of the quantum and the planted partition recovers stably).
@@ -39,7 +38,7 @@ CONFIGS = [
     # all_num_layers=1 (the Table-2 depth): DeepSets aggregation
     # oversmooths the small synthetics at depth 2. Width 128: at 64 the
     # cross-run std is ~4 points (underfit runs scatter); 128 converges
-    # uniformly (75.2 ± 1.6 measured over 20 TPU runs).
+    # uniformly (75.2 ± 1.6 over 20 runs).
     ("synthetic-mid/AllDeepSets", "synthetic-mid", "AllDeepSets",
      dict(mlp_hidden=128, classifier_hidden=128, lr=0.01,
           all_num_layers=1), 20, 200),
@@ -59,7 +58,7 @@ CONFIGS = [
     ("synthetic-att/AllSetTransformer", "synthetic-att", "AllSetTransformer",
      dict(heads=4, mlp_hidden=64, classifier_hidden=64, lr=0.003,
           all_num_layers=1), 20, 600),
-    # r5 (VERDICT r4 #8): every factory-reachable family gets a band
+    # r5: every factory-reachable family gets a band
     ("synthetic-mid/UniGCNII", "synthetic-mid", "UniGCNII",
      dict(mlp_hidden=64, all_num_layers=2, lr=0.01), 20, 200),
     ("synthetic-mid/CEGCN", "synthetic-mid", "CEGCN",
@@ -131,6 +130,7 @@ def main():
         print(f"[bands] {key}: {runs} runs x {epochs} epochs ...", flush=True)
         rec = run_config(dataset, method, overrides, runs, epochs)
         rec["platform"] = jax.devices()[0].platform
+        rec["device_kind"] = jax.devices()[0].device_kind  # beside wall_s
         bands[key] = rec
         print(f"[bands] {key}: test {rec['final_test_mean']} "
               f"± {rec['final_test_std']}", flush=True)

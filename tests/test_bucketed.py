@@ -1,4 +1,4 @@
-"""VMEM-cliff bucketed exchange (ops/bucketed.py): table-sliced gathers
+"""Row-bucketed exchange (ops/bucketed.py): table-sliced gathers
 must match the unbucketed fused spmm exactly — outputs AND gradients —
 including under vmap (runs folding) and with the self-loop split."""
 

@@ -4,8 +4,8 @@ gather/segment-sum per call instead of R batched ones.
 
 This is the round-2 fix for the reference's canonical 20-run protocol
 (``src/train.py:458-499``): the Trainer vmaps runs, and the primitives'
-batching rules fold the runs axis into the feature axis so the Pallas
-kernel (on TPU) and the hardware gather path serve all runs in one pass.
+batching rules fold the runs axis into the feature axis so one gather and
+one sorted reduce serve all runs in one pass.
 """
 
 import re
@@ -51,7 +51,7 @@ def test_fold_segsum_matches_vmap_segment_sum(rng):
     _, dst = _graph(rng)
     msgs = jnp.asarray(rng.normal(size=(4, 96, 8)).astype(np.float32))
     got = jax.vmap(
-        lambda m: fold_segsum(m, dst, None, 10, 10, 256, 512, False)
+        lambda m: fold_segsum(m, dst, 10)
     )(msgs)
     want = jax.vmap(
         lambda m: jax.ops.segment_sum(

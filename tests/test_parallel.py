@@ -243,7 +243,7 @@ def test_setgnn_sharded_exchange_matches_plain(rng):
 def test_sharded_learnmask_grads_match(rng):
     """SetGNN LearnMask over the shard_map exchange (split=False): loss
     and ALL gradients — including the per-entry importance parameter via
-    the sharded SDDMM + psum — match single-device (VERDICT r1 #7)."""
+    the sharded SDDMM + psum — match single-device."""
     import dataclasses
 
     import jax
@@ -302,7 +302,7 @@ def test_sharded_learnmask_grads_match(rng):
 @pytest.mark.parametrize("use_norm", [True, False])
 def test_sharded_max_matches_single_device(rng, use_norm):
     """Sharded 'max' reduce (per-shard segment-max, disjoint dst blocks):
-    values and gradients match the single-chip path (VERDICT r1 #7)."""
+    values and gradients match the single-chip path."""
     import jax
     import jax.numpy as jnp
 
@@ -416,13 +416,12 @@ def _collective_census(txt):
 
 def test_sharded_step_collective_census(rng):
     """Prove parallel/sharded.py's communication claims on the COMPILED
-    program (VERDICT r2 #4): per exchange, the forward carries exactly
+    program: per exchange, the forward carries exactly
     one explicit output-reassembly ALL-GATHER (r5; [D*rows_per_shard, W]
     stacked disjoint blocks — half an all-reduce's wire bytes) and the
     backward exactly one dw psum ([num_src, W]); no all-to-all /
-    collective-permute / reduce-scatter anywhere. Multi-chip hardware is
-    unavailable in this environment, so compiled-HLO inspection is the
-    scaling evidence (SURVEY.md §4 item 4)."""
+    collective-permute / reduce-scatter anywhere (SURVEY.md §4 item 4;
+    chip_smoke.py --chips 4 counts the same collectives on four cards)."""
     import dataclasses
 
     from allset_tpu.graph.transforms import HyperData
@@ -498,7 +497,7 @@ def test_sharded_step_collective_census(rng):
 
 def test_sharded_vmapped_runs_match_sequential(rng):
     """The canonical vmapped statistical-runs protocol over the
-    shard_map edge-partitioned exchange (VERDICT r2 #3): vmap pushes the
+    shard_map edge-partitioned exchange: vmap pushes the
     runs axis inside the shard bodies where the runs-folding batching
     rules apply; a vmapped multi-run sharded fit must equal the same
     runs trained sequentially (same rng streams, same step function)."""
@@ -544,7 +543,7 @@ def test_sharded_vmapped_runs_match_sequential(rng):
     )
 
 
-# --- zoo + LearnMask collective census (VERDICT r3 #6) ----------------------
+# --- zoo + LearnMask collective census ----------------------
 
 
 def _zoo_setup(method, split, **cfg_kw):

@@ -232,7 +232,7 @@ def test_pma_return_attention_sums_to_one(rng):
     node = rng.integers(0, n, size=nnz)
     edge = np.sort(rng.integers(0, m, size=nnz))
     inc = Incidence.from_arrays(node, edge, num_nodes=n, num_edges=m,
-                                bucket=128, kernel_s_blk=16, kernel_chunk=128)
+                                bucket=128)
     d = inc.v2e()
     pma = PMA(hid_dim=16, out_dim=16, num_layers=2, heads=4, return_attention=True)
     x = jnp.asarray(rng.normal(size=(n, 16)).astype(np.float32))

@@ -1,5 +1,5 @@
 """Per-layer numeric oracle parity for the baseline-zoo convs
-(VERDICT r1 #6; SURVEY.md §4 implication (2)).
+(SURVEY.md §4 implication (2)).
 
 Each oracle is an independent dense-numpy implementation of the
 reference equations — HypergraphConv incl. symdegnorm and the attention

@@ -139,57 +139,69 @@ def test_propagate_padding_dropped(rng):
     np.testing.assert_allclose(got[2:], 0.0)
 
 
-def test_pallas_segment_sum_interpret_matches_xla(rng):
-    """The Pallas sorted-segment-sum (interpret mode on CPU) must match
-    the XLA scatter path bit-for-tolerance, including padding and the
-    aligned-read overshoot discipline."""
+def _sorted_inc(rng, n, m, nnz):
+    """Incidence whose last segments are empty (ids drawn below m - 3) and
+    whose nnz axis carries padded entries (nnz not a bucket multiple)."""
     from allset_tpu.graph.incidence import Incidence
-    from allset_tpu.ops.pallas_segment import segment_sum_csr
 
-    n, m, f, nnz = 200, 100, 8, 700
     node = rng.integers(0, n, size=nnz)
-    edge = np.sort(rng.integers(0, m, size=nnz))
-    inc = Incidence.from_arrays(
-        node, edge, num_nodes=n, num_edges=m,
-        bucket=128, kernel_s_blk=16, kernel_chunk=128,
-    )
-    assert inc.edge_block_indptr is not None
+    edge = np.sort(rng.integers(0, m - 3, size=nnz))
+    inc = Incidence.from_arrays(node, edge, num_nodes=n, num_edges=m, bucket=128)
+    assert inc.nnz_padded > inc.nnz
+    return inc
+
+
+@pytest.mark.parametrize("f", [1, 7, 130])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_sorted_reduce_matches_numpy(rng, f, dtype):
+    """dir_reduce's sorted sum (XLA segment_sum with the sorted hint,
+    float32 accumulation) matches a numpy float64 oracle at widths off
+    any lane multiple; empty segments are 0 and padded entries drop."""
+    from allset_tpu.ops.exchange import dir_reduce
+
+    inc = _sorted_inc(rng, 40, 25, 300)
+    d = inc.v2e()
     msgs = rng.normal(size=(inc.nnz_padded, f)).astype(np.float32)
-    msgs[~np.asarray(inc.mask)] = 0.0
-
-    got = np.asarray(segment_sum_csr(jnp.asarray(msgs), inc, interpret=True))
-    want = np.asarray(
-        jax.ops.segment_sum(jnp.asarray(msgs), inc.edge, num_segments=m,
-                            indices_are_sorted=True)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_pallas_segment_sum_grad(rng):
-    from allset_tpu.graph.incidence import Incidence
-    from allset_tpu.ops.pallas_segment import segment_sum_csr
-
-    n, m, f, nnz = 40, 32, 8, 150
-    node = rng.integers(0, n, size=nnz)
-    edge = np.sort(rng.integers(0, m, size=nnz))
-    inc = Incidence.from_arrays(
-        node, edge, num_nodes=n, num_edges=m,
-        bucket=128, kernel_s_blk=16, kernel_chunk=128,
-    )
-    msgs = rng.normal(size=(inc.nnz_padded, f)).astype(np.float32)
-
-    g_p = jax.grad(lambda mm: (segment_sum_csr(mm, inc, interpret=True) ** 2).sum())(
-        jnp.asarray(msgs)
-    )
-    g_x = jax.grad(
-        lambda mm: (
-            jax.ops.segment_sum(mm, inc.edge, num_segments=m, indices_are_sorted=True) ** 2
-        ).sum()
-    )(jnp.asarray(msgs))
-    mask = np.asarray(inc.mask)
+    msgs[~np.asarray(inc.mask)] = 1e3  # padded entries must not count
+    got = dir_reduce(jnp.asarray(msgs).astype(dtype), d, "add")
+    assert got.shape == (25, f) and got.dtype == jnp.dtype(dtype)
+    want = np.zeros((25, f))
+    m_in = np.asarray(jnp.asarray(msgs).astype(dtype).astype(jnp.float32))
+    for e, ok, row in zip(np.asarray(d.dst), np.asarray(d.mask), m_in):
+        if ok:
+            want[e] += row
+    assert np.all(want[-3:] == 0)
+    tol = 1e-5 if dtype == np.float32 else 2e-2
     np.testing.assert_allclose(
-        np.asarray(g_p)[mask], np.asarray(g_x)[mask], rtol=1e-4, atol=1e-4
+        np.asarray(got.astype(jnp.float32)), want,
+        rtol=tol, atol=tol * np.abs(want).max(),
     )
+
+
+@pytest.mark.parametrize("direction", ["v2e", "e2v"])
+def test_sorted_reduce_vjp_is_row_gather(rng, direction):
+    """The custom VJP of the sorted sum hands every valid entry the
+    cotangent row of its segment (autodiff of segment_sum), at a
+    lane-unaligned width, through both execution orders."""
+    from allset_tpu.ops.exchange import dir_reduce
+
+    inc = _sorted_inc(rng, 40, 25, 300)
+    d = inc.v2e() if direction == "v2e" else inc.e2v()
+    f = 5
+    msgs = jnp.asarray(rng.normal(size=(inc.nnz_padded, f)).astype(np.float32))
+    t = jnp.asarray(rng.normal(size=(d.num_dst, f)).astype(np.float32))
+
+    g = jax.grad(lambda mm: (dir_reduce(mm, d, "add") * t).sum())(msgs)
+    g_ref = jax.grad(
+        lambda mm: (
+            jax.ops.segment_sum(mm, d.dst, num_segments=d.num_dst) * t
+        ).sum()
+    )(msgs)
+    mask = np.asarray(d.mask)
+    np.testing.assert_allclose(np.asarray(g)[mask], np.asarray(g_ref)[mask],
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(g)[mask],
+                                  np.asarray(t)[np.asarray(d.dst)[mask]])
 
 
 # --- fused dir_spmm (permute-free backward) --------------------------------
@@ -202,7 +214,7 @@ def _make_inc(rng, n=60, m=24, nnz=260):
     edge = np.sort(rng.integers(0, m, size=nnz))
     return Incidence.from_arrays(
         node, edge, norm=rng.normal(size=nnz).astype(np.float32),
-        num_nodes=n, num_edges=m, bucket=128, kernel_s_blk=16, kernel_chunk=128,
+        num_nodes=n, num_edges=m, bucket=128,
     )
 
 

@@ -1,6 +1,6 @@
 """End-to-end test of scripts/verify_real_data.py against a miniature
 fake AllSet raw archive (the readiness harness must work the moment the
-real archive lands; VERDICT r1 item 9)."""
+real archive lands)."""
 
 import pickle
 
